@@ -1,0 +1,437 @@
+"""Unified ternary-matmul dispatch: one entry point, several kernels.
+
+The port's registry holds the kernels ported so far:
+
+  * ``ref``: plain PyTorch, unpack then an f32 matmul (the oracle, and the
+    fastest CPU path);
+  * ``lut_gather``: the paper's two-phase LUT, hand-written CUDA
+    (``kernels/lut_matmul.py``);
+  * ``tl2``: the two-trit 9-entry LUT, hand-written CUDA
+    (``kernels/tl2_matmul.py``).
+
+Selection follows the reference exactly: an autotune cache keyed on
+``(M, K, N, mu, act_dtype, backend)`` when it has a measurement, else the
+analytical static prior (per-MAC gate cost from the paper's area model plus
+the weight bytes streamed), ties broken by name.  The prior's penalty for a
+kernel that cannot run natively here becomes: a hand-written kernel whose
+tensors are not on CUDA.  On ``cuda`` the prior therefore picks what the
+reference picks on its accelerator backend.
+
+Shape convention: ``x [..., K]``, weights ``[N, K]`` (out-major), result
+``[..., N]``.  Kernels return the *unscaled* product in f32; the weight
+scale is applied once on the way out.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import tempfile
+from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+
+from repro_torch.core import cost_model as cm
+from repro_torch.core import encoding
+from repro_torch.kernels.lut_matmul import lut_matmul
+from repro_torch.kernels.tl2_matmul import (TRITS_PER_WORD, pack_tl2,
+                                            repack_base3_to_tl2, tl2_matmul)
+
+CACHE_PATH_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+
+#: exchange rate between the prior's two terms: gate-cycles of compute per
+#: byte of weight traffic (the reference's constant)
+GATES_PER_BYTE = 2048.0
+
+#: multiplier on hand-written kernels whose tensors are not on CUDA (they
+#: would run their plain PyTorch version, which is never competitive)
+OFF_DEVICE_PENALTY = 1e4
+
+
+# ---------------------------------------------------------------------------
+# Weight container
+# ---------------------------------------------------------------------------
+
+
+class TernaryWeight:
+    """A ternary ``[N, K]`` weight (out-major) with its absmean ``scale``.
+
+    Built from base-3 packed bytes (the serving artifact) or int8 trits.
+    Each kernel's encoding (dense trits, mu-group LUT keys, TL2 words) is
+    derived once, on first use, on the weight's device, and kept: a weight
+    bound once serves every later step without re-deriving it.
+    """
+
+    def __init__(self, w_t: torch.Tensor | None = None, scale=1.0, *,
+                 packed: torch.Tensor | None = None, k: int | None = None,
+                 mu: int = 3):
+        if w_t is None and packed is None:
+            raise ValueError("need trits or packed bytes")
+        if w_t is not None and w_t.dtype != torch.int8:
+            w_t = w_t.to(torch.int8)
+        self._w_t = w_t
+        self._packed = packed
+        self._k = int(w_t.shape[-1]) if w_t is not None else int(k)
+        self.scale = scale
+        self.mu = mu
+        self._keys: dict[int, torch.Tensor] = {}
+        self._tl2: torch.Tensor | None = None
+
+    @classmethod
+    def from_ternary(cls, w_t: torch.Tensor, scale=1.0, *,
+                     mu: int = 3) -> "TernaryWeight":
+        return cls(w_t, scale, mu=mu)
+
+    @classmethod
+    def from_packed(cls, packed: torch.Tensor, scale, k: int, *,
+                    mu: int = 3) -> "TernaryWeight":
+        """Serving artifact ``{"packed" [N, ceil(K/5)+pad], "scale"}``."""
+        return cls(None, scale, packed=packed, k=k, mu=mu)
+
+    @property
+    def out_features(self) -> int:
+        src = self._w_t if self._w_t is not None else self._packed
+        return int(src.shape[0])
+
+    @property
+    def in_features(self) -> int:
+        return self._k
+
+    def _trits_uncached(self) -> torch.Tensor:
+        if self._w_t is not None:
+            return self._w_t
+        return encoding.unpack_base3(self._packed, self._k)
+
+    def trits(self) -> torch.Tensor:
+        """Dense ``[N, K]`` int8 trits (ref path)."""
+        if self._w_t is None:
+            self._w_t = self._trits_uncached()
+        return self._w_t
+
+    def keys(self, mu: int | None = None) -> torch.Tensor:
+        """Group keys ``[N, ceil(K/mu)]`` (LUT path)."""
+        mu = mu or self.mu
+        if mu not in self._keys:
+            self._keys[mu] = encoding.encode_weight_matrix(
+                self._trits_uncached(), mu)
+        return self._keys[mu]
+
+    def tl2(self) -> torch.Tensor:
+        """TL2 words ``[N, ceil(K/10)]`` held as int16 (tl2 path)."""
+        if self._tl2 is None:
+            self._tl2 = (repack_base3_to_tl2(self._packed, self._k)
+                         if self._w_t is None else pack_tl2(self._w_t))
+        return self._tl2
+
+
+# ---------------------------------------------------------------------------
+# Kernel registry
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class KernelSpec:
+    """One registered ternary-matmul implementation: ``run(x2, w, mu)``
+    takes ``x2 [M, K]`` and returns the unscaled ``[M, N]`` f32 product
+    against ``w``'s trits."""
+
+    name: str
+    run: Callable
+    act_dtypes: frozenset
+    hand: bool                        # hand-written CUDA kernel
+    prior_per_mac: Callable           # (K, N, coeffs, mu) -> gates per MAC
+    weight_bytes: Callable            # (K, N, mu) -> weight bytes streamed
+    describe: str = ""
+
+    def supports(self, m: int, k: int, n: int, act_dtype: str) -> bool:
+        return act_dtype in self.act_dtypes
+
+
+REGISTRY: dict[str, KernelSpec] = {}
+
+_ALL_DTYPES = frozenset({"float32", "bfloat16", "float16", "int8"})
+
+
+def register_kernel(spec: KernelSpec) -> KernelSpec:
+    if spec.name in REGISTRY:
+        raise ValueError(f"kernel {spec.name!r} already registered")
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_kernel(name: str) -> KernelSpec:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown kernel {name!r}; registered: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def eligible_kernels(m: int, k: int, n: int, act_dtype: str) -> list[KernelSpec]:
+    return [s for s in REGISTRY.values() if s.supports(m, k, n, act_dtype)]
+
+
+def _run_ref(x2, w, mu):
+    return x2.to(torch.float32) @ w.trits().to(torch.float32).T
+
+
+def _run_lut_gather(x2, w, mu):
+    keys = w.keys(mu)
+    pad = keys.shape[-1] * mu - x2.shape[-1]
+    if pad:
+        x2 = torch.nn.functional.pad(x2, (0, pad))
+    return lut_matmul(x2, keys, mu)
+
+
+def _run_tl2(x2, w, mu):
+    return tl2_matmul(x2, w.tl2(), w.in_features)
+
+
+def _per_mac_lut(k, n, c, mu):
+    return cm.area_per_throughput(mu, max(k, mu), max(n, 1), c)
+
+
+def _per_mac_tl2(k, n, c, mu):
+    # TL2 is the mu=2 point of the LUT family: a trit pair keys 9 entries
+    return cm.area_per_throughput(2, max(k, 2), max(n, 1), c)
+
+
+def _per_mac_dense(k, n, c, mu):
+    return c.a_mul + c.a_add
+
+
+def _bytes_dense(k, n, mu):
+    return 2.0 * k * n          # bf16 dense weights
+
+
+def _bytes_keys(k, n, mu):
+    nbytes = 1 if encoding.key_bits(mu) <= 8 else 2
+    return n * math.ceil(k / mu) * nbytes
+
+
+def _bytes_tl2(k, n, mu):
+    return 2.0 * n * math.ceil(k / TRITS_PER_WORD)
+
+
+register_kernel(KernelSpec(
+    name="ref", run=_run_ref, act_dtypes=_ALL_DTYPES, hand=False,
+    prior_per_mac=_per_mac_dense, weight_bytes=_bytes_dense,
+    describe="plain PyTorch f32 matmul over decoded trits (oracle + CPU "
+             "serving path)"))
+
+register_kernel(KernelSpec(
+    name="lut_gather", run=_run_lut_gather, act_dtypes=_ALL_DTYPES, hand=True,
+    prior_per_mac=_per_mac_lut, weight_bytes=_bytes_keys,
+    describe="two-phase LUT CUDA kernel, shared-memory tables, gather fetch"))
+
+register_kernel(KernelSpec(
+    name="tl2", run=_run_tl2, act_dtypes=_ALL_DTYPES, hand=True,
+    prior_per_mac=_per_mac_tl2, weight_bytes=_bytes_tl2,
+    describe="TL2 two-trit 9-entry LUT CUDA kernel (base-9 16-bit words, "
+             "1.6 b/w)"))
+
+
+# ---------------------------------------------------------------------------
+# Static prior
+# ---------------------------------------------------------------------------
+
+
+def static_prior(spec: KernelSpec, m: int, k: int, n: int, act_dtype: str,
+                 device: str = "cuda", mu: int = 3) -> float:
+    """Analytical cost of ``spec`` on an ``[m,k]×[n,k]`` matmul: per-MAC
+    gate cost × MACs plus :data:`GATES_PER_BYTE` × weight bytes.  Lower is
+    better.  Hand-written kernels carry :data:`OFF_DEVICE_PENALTY` when the
+    tensors are not on CUDA."""
+    coeffs = cm.get_coeffs("int8" if act_dtype == "int8" else "fp16")
+    compute = float(m) * k * n * spec.prior_per_mac(k, n, coeffs, mu)
+    cost = compute + GATES_PER_BYTE * spec.weight_bytes(k, n, mu)
+    if spec.hand and device != "cuda":
+        cost *= OFF_DEVICE_PENALTY
+    return cost
+
+
+# ---------------------------------------------------------------------------
+# Autotune cache
+# ---------------------------------------------------------------------------
+
+
+def _default_cache_path() -> str:
+    return os.environ.get(
+        CACHE_PATH_ENV,
+        os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                     "autotune.json"))
+
+
+#: on-disk schema (the reference's v2 key form); other versions load empty
+CACHE_SCHEMA_VERSION = 2
+
+
+@dataclass
+class AutotuneCache:
+    """Disk-persisted measurements ``(M,K,N,mu,dtype,backend) → {kernel: µs}``::
+
+        {"schema_version": 2,
+         "entries": {"M4:K2560:N6912:mu3:bfloat16:cuda": {"lut_gather": 41.0}}}
+    """
+
+    path: str = field(default_factory=_default_cache_path)
+    entries: dict = field(default_factory=dict)
+
+    @staticmethod
+    def key(m: int, k: int, n: int, act_dtype: str, backend: str, *,
+            mu: int = 3) -> str:
+        return f"M{m}:K{k}:N{n}:mu{mu}:{act_dtype}:{backend}"
+
+    @classmethod
+    def load(cls, path: str | None = None) -> "AutotuneCache":
+        path = path or _default_cache_path()
+        entries = {}
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+            if isinstance(doc, dict) and \
+                    doc.get("schema_version") == CACHE_SCHEMA_VERSION:
+                entries = doc.get("entries", {})
+        except (OSError, ValueError):
+            pass
+        return cls(path=path, entries=entries)
+
+    def save(self) -> None:
+        """Atomically persist: a unique temp file in the target directory,
+        fsync, then ``os.replace`` (readers never see a partial file)."""
+        d = os.path.dirname(self.path) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".autotune-", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as fh:
+                json.dump({"schema_version": CACHE_SCHEMA_VERSION,
+                           "entries": self.entries}, fh, indent=1,
+                          sort_keys=True)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, self.path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
+    def record(self, m: int, k: int, n: int, act_dtype: str, backend: str,
+               kernel: str, us: float, *, mu: int = 3) -> None:
+        key = self.key(m, k, n, act_dtype, backend, mu=mu)
+        self.entries.setdefault(key, {})[kernel] = us
+        _SELECTED.clear()
+
+    def best(self, m: int, k: int, n: int, act_dtype: str, backend: str, *,
+             mu: int = 3) -> str | None:
+        t = self.entries.get(self.key(m, k, n, act_dtype, backend, mu=mu), {})
+        t = {name: us for name, us in t.items() if name in REGISTRY}
+        return min(t, key=t.get) if t else None
+
+
+_CACHE: AutotuneCache | None = None
+
+#: selections made against the process cache, keyed on the whole problem
+#: ``(m, k, n, act_dtype, policy, device, mu)``: a decode step asks for the
+#: same few shapes on every projection, so each is resolved once
+_SELECTED: dict[tuple, "KernelSpec"] = {}
+
+
+def get_autotune_cache() -> AutotuneCache:
+    """The process's autotune cache, read from disk once."""
+    global _CACHE
+    if _CACHE is None:
+        _CACHE = AutotuneCache.load()
+    return _CACHE
+
+
+def reset_autotune_cache() -> None:
+    """Drop the in-process cache and the selections made against it
+    (re-reads the path on next use)."""
+    global _CACHE
+    _CACHE = None
+    _SELECTED.clear()
+
+
+# ---------------------------------------------------------------------------
+# Selection + public entry point
+# ---------------------------------------------------------------------------
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def select_kernel(m: int, k: int, n: int, act_dtype: str, *,
+                  policy: str | None = None, device: str = "cuda",
+                  cache: AutotuneCache | None = None,
+                  mu: int = 3) -> KernelSpec:
+    """Resolve a policy to a registered kernel for the given problem.
+
+    ``"fixed:<name>"`` pins a kernel (``KeyError`` listing the registered
+    kernels if unknown); ``"auto"`` (the default, ``policy=None``) takes the
+    autotune cache's best when it has one, else the prior; ``"prior"``
+    ignores the cache.  Without an explicit ``cache`` the result is memoized
+    per problem until the process cache changes."""
+    policy = policy or "auto"
+    if cache is not None:
+        return _select(m, k, n, act_dtype, policy, device, cache, mu)
+    key = (m, k, n, act_dtype, policy, device, mu)
+    spec = _SELECTED.get(key)
+    if spec is None:
+        spec = _SELECTED[key] = _select(m, k, n, act_dtype, policy, device,
+                                        None, mu)
+    return spec
+
+
+def _select(m: int, k: int, n: int, act_dtype: str, policy: str, device: str,
+            cache: AutotuneCache | None, mu: int) -> KernelSpec:
+    if policy.startswith("fixed:"):
+        spec = get_kernel(policy[len("fixed:"):])
+        if not spec.supports(m, k, n, act_dtype):
+            raise ValueError(f"kernel {spec.name!r} does not support "
+                             f"act_dtype={act_dtype}")
+        return spec
+    if policy not in ("auto", "prior"):
+        raise ValueError(
+            f"unknown policy {policy!r}; expected 'auto', 'prior', or "
+            f"'fixed:<name>' with name in {sorted(REGISTRY)}")
+    candidates = eligible_kernels(m, k, n, act_dtype)
+    if not candidates:
+        raise ValueError(f"no registered kernel supports act_dtype={act_dtype}")
+    if policy == "auto":
+        cache = cache or get_autotune_cache()
+        best = cache.best(m, k, n, act_dtype, device, mu=mu)
+        if best is not None and get_kernel(best).supports(m, k, n, act_dtype):
+            return get_kernel(best)
+    return min(candidates,
+               key=lambda s: (static_prior(s, m, k, n, act_dtype, device, mu),
+                              s.name))
+
+
+def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
+                   policy: str | None = None, mu: int | None = None,
+                   cache: AutotuneCache | None = None) -> torch.Tensor:
+    """``y[..., n] = Σ_k x[..., k] · trits(w)[n, k] · scale`` through the
+    kernel selected for this (shape, dtype, device).
+
+    ``x`` is float (f32/bf16/f16) or pre-quantized int8 (the caller applies
+    the activation scale).  Returns ``[..., N]`` in ``x``'s dtype for float
+    inputs, f32 for int8."""
+    mu = mu or w.mu
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    if k != w.in_features:
+        raise ValueError(f"x K={k} != weight K={w.in_features}")
+    x2 = x.reshape(-1, k)
+    n = w.out_features
+    act = _dtype_name(x.dtype)
+    spec = select_kernel(x2.shape[0], k, n, act, policy=policy,
+                         device=x.device.type, cache=cache, mu=mu)
+    y = spec.run(x2, w, mu)
+    s = w.scale if scale is None else scale
+    if s is not None:
+        y = y * torch.as_tensor(s, dtype=torch.float32, device=y.device)
+    out_dtype = torch.float32 if act == "int8" else x.dtype
+    return y.reshape(*lead, n).to(out_dtype)

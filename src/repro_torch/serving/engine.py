@@ -1,0 +1,249 @@
+"""Batched serving engine over packed-ternary weights.
+
+Weights live on the card at 1.6 bits each (``quantize_for_serving``); the
+engine binds each projection's kernel encoding once
+(``decode.bind_serving_weights``) and serves requests through the
+continuous-batching protocol that
+:class:`repro_torch.serving.scheduler.ContinuousScheduler` drives: chunked,
+length-bucketed admission into a private single-row cache spliced into the
+live batch on the last chunk, and a fused sample → mask → decode step with
+stop and budget masking on the device.
+
+Prefix caching, speculative decoding, mesh sharding and the generational
+``run()`` path are not ported yet; the constructor rejects their arguments.
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode import (bind_serving_weights, cache_len,
+                                       decode_step, init_cache,
+                                       prefill_chunks_of,
+                                       supports_chunked_prefill)
+from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
+
+
+@dataclass
+class SamplerConfig:
+    temperature: float = 0.0  # 0 → greedy
+    top_k: int = 0
+    seed: int = 0
+    #: greedy via :func:`greedy_tokens` (bf16-rounded argmax) instead of raw
+    #: f32 argmax
+    canonical_greedy: bool = False
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Canonical greedy selection: round logits to bf16, then argmax; exact
+    ties go to the lowest token id."""
+    return torch.argmax(logits.to(torch.bfloat16), dim=-1).to(torch.int32)
+
+
+def sample_tokens(logits: torch.Tensor, cfg: SamplerConfig,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    if cfg.temperature <= 0.0:
+        if cfg.canonical_greedy:
+            return greedy_tokens(logits)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits / cfg.temperature
+    if cfg.top_k:
+        kth = torch.topk(logits, cfg.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -1e30, logits)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0].to(torch.int32)
+
+
+#: process-wide monotonic request-id source (see ``Request.rid``)
+_RID = itertools.count()
+
+
+@dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 32
+    stop_token: int | None = None
+    #: streaming callback, fired as ``on_token(request, token)`` per emitted
+    #: token (overrides any scheduler-wide callback)
+    on_token: Callable[["Request", int], None] | None = None
+    out: list[int] = field(default_factory=list)
+    done: bool = False
+    #: traffic class (grouping key for scheduler statistics)
+    tenant: str | None = None
+    #: stable monotonically-assigned request id, the key for per-request
+    #: bookkeeping (``id(request)`` is reused after garbage collection)
+    rid: int = field(default_factory=_RID.__next__)
+
+
+#: token fed to dead/padding slots (outputs of those rows are never surfaced)
+PAD_TOKEN = 1
+
+
+class DecodeEngine:
+    def __init__(self, params, cfg: ModelConfig, *, batch_size: int,
+                 max_len: int, sampler: SamplerConfig | None = None,
+                 matmul_policy: str | None = None, prefill_chunk: int = 32,
+                 device: str | torch.device | None = None, mesh=None,
+                 prefix_cache=False, draft=None):
+        """Serve ``params`` (the ``quantize_for_serving`` tree) on ``device``
+        (default ``cuda``; raises when there is none).
+
+        ``matmul_policy`` overrides ``cfg.matmul_policy`` for every ternary
+        projection ("auto" | "prior" | "fixed:<kernel>").  ``prefill_chunk``
+        sets the admission chunk (clamped to the ring on windowed configs).
+        ``mesh``, ``prefix_cache`` and ``draft`` belong to features not
+        ported yet and raise when set."""
+        for name, value in (("mesh", mesh), ("prefix_cache", prefix_cache),
+                            ("draft", draft)):
+            if value is not None and value is not False:
+                raise NotImplementedError(
+                    f"DecodeEngine({name}=...) is not ported yet: the port "
+                    f"serves single-device continuous batching without "
+                    f"prefix caching or speculative decoding")
+        self.device = resolve_device(device)
+        if matmul_policy is not None:
+            cfg = cfg.with_(matmul_policy=matmul_policy)
+        if not supports_chunked_prefill(params, cfg):
+            raise NotImplementedError(
+                f"{cfg.name} needs whole-prompt admission, which is not "
+                f"ported yet")
+        self.cfg = cfg
+        self.B = batch_size
+        self.batch_size = batch_size  # ScheduleBackend protocol name
+        self.max_len = max_len
+        self.sampler = sampler or SamplerConfig()
+        self.prefill_chunk = max(1, min(prefill_chunk, cache_len(cfg, max_len)))
+        params = _to_device(params, self.device)
+        self.params = bind_serving_weights(params, cfg)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self.sampler.seed)
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        """Generational batching is not ported yet; use :meth:`serve`."""
+        raise NotImplementedError(
+            "DecodeEngine.run (generational batching) is not ported yet; "
+            "serve() runs the continuous-batching path")
+
+    # ------------------------------------------------------------------
+    # continuous batching (ScheduleBackend protocol)
+    # ------------------------------------------------------------------
+
+    def sched_start(self) -> dict:
+        """Fresh scheduler state: empty cache, all slots dead."""
+        B, V, dev = self.B, self.cfg.padded_vocab, self.device
+        return {
+            "cache": init_cache(self.cfg, B, self.max_len, device=dev),
+            "logits": torch.zeros((B, V), dtype=torch.float32, device=dev),
+            "live": torch.zeros((B,), dtype=torch.bool, device=dev),
+            "index": torch.zeros((B,), dtype=torch.int32, device=dev),
+            "remaining": torch.zeros((B,), dtype=torch.int32, device=dev),
+            "stop": torch.full((B,), -1, dtype=torch.int32, device=dev),
+        }
+
+    def _validate_request(self, request: Request) -> int:
+        plen = len(request.prompt)
+        if plen < 1:
+            raise ValueError("empty prompt")
+        if not self.cfg.window and plen + request.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({plen}) + max_new_tokens ({request.max_new_tokens}) "
+                f"exceeds engine max_len {self.max_len}")
+        return plen
+
+    def sched_admit_start(self, state: dict, slot: int, request: Request):
+        """Begin admitting ``request`` into ``slot``: returns ``(state,
+        pending)``; feed ``pending`` to :meth:`sched_admit_step` until it
+        returns ``None``.  The prefill runs against a private single-row
+        cache, so decode steps on the other rows proceed untouched."""
+        plen = self._validate_request(request)
+        C, dev = self.prefill_chunk, self.device
+        prompt = np.asarray(request.prompt, np.int64)
+        chunks = []
+        for start, valid in prefill_chunks_of(plen, C):
+            toks = np.full((1, C), PAD_TOKEN, np.int64)
+            toks[0, :valid] = prompt[start:start + valid]
+            pos = np.full((1, C), -1, np.int32)
+            pos[0, :valid] = np.arange(start, start + valid)
+            chunks.append((torch.from_numpy(toks).to(dev),
+                           torch.from_numpy(pos).to(dev), valid - 1))
+        pending = {"request": request, "slot": slot, "chunks": chunks, "i": 0,
+                   "cache": init_cache(self.cfg, 1, self.max_len, device=dev),
+                   "logits1": None}
+        return state, pending
+
+    def sched_admit_step(self, state: dict, pending: dict):
+        """Prefill one prompt chunk; on the last one splice the row into the
+        live state and arm the slot.  Returns ``(state, pending | None)``."""
+        toks, pos, take = pending["chunks"][pending["i"]]
+        pending["cache"], logits1 = model_prefill_chunk(
+            self.params, self.cfg, pending["cache"], toks, pos, take)
+        pending["i"] += 1
+        if pending["i"] < len(pending["chunks"]):
+            return state, pending
+        return self._commit(state, pending["slot"], pending["cache"],
+                            logits1[0], pending["request"]), None
+
+    def _commit(self, state: dict, slot: int, cache1: dict, logits1,
+                request: Request) -> dict:
+        """Splice a prefilled single-row cache into batch row ``slot`` and arm
+        the slot (in place)."""
+        for name in ("k", "v", "pos"):
+            state["cache"][name][:, slot] = cache1[name][:, 0]
+        state["logits"][slot] = logits1
+        state["live"][slot] = True
+        state["index"][slot] = len(request.prompt) - 1
+        state["remaining"][slot] = request.max_new_tokens
+        state["stop"][slot] = -1 if request.stop_token is None \
+            else int(request.stop_token)
+        return state
+
+    def sched_admit(self, state: dict, slot: int, request: Request) -> dict:
+        """Atomic admission: every chunk of ``request`` in one call."""
+        state, pending = self.sched_admit_start(state, slot, request)
+        while pending is not None:
+            state, pending = self.sched_admit_step(state, pending)
+        return state
+
+    def sched_step(self, state: dict):
+        """Sample → mask dead slots → advance positions → decode → stop and
+        budget masking.  Returns ``(state, tokens [B], alive [B])`` as numpy."""
+        live = state["live"]
+        toks = sample_tokens(state["logits"], self.sampler, self._gen)
+        toks = torch.where(live, toks, PAD_TOKEN)
+        index = state["index"] + live.to(torch.int32)
+        # dead rows decode at -1: their KV/pos writes drop
+        logits, cache = decode_step(self.params, self.cfg, state["cache"],
+                                    toks, torch.where(live, index, -1))
+        remaining = state["remaining"] - live.to(torch.int32)
+        alive = live & (toks != state["stop"]) & (remaining > 0)
+        state = dict(state, cache=cache, logits=logits, index=index,
+                     remaining=remaining, live=alive)
+        return state, toks.cpu().numpy(), alive.cpu().numpy()
+
+    def serve(self, requests: list[Request], *,
+              on_token: Callable[[Request, int], None] | None = None,
+              max_steps: int | None = None,
+              admission_budget: int | None = None) -> list[Request]:
+        """Run requests through the continuous-batching scheduler; returns
+        ``requests`` (same objects, ``out`` filled, in input order)."""
+        from repro_torch.serving.scheduler import ContinuousScheduler
+
+        sched = ContinuousScheduler(self, on_token=on_token,
+                                    admission_budget=admission_budget)
+        for r in requests:
+            sched.submit(r)
+        sched.run(max_steps=max_steps)
+        return requests
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

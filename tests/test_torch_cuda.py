@@ -1,0 +1,113 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.
+
+These tests need a CUDA card and ``nvcc`` (the kernels are built from
+``src/repro_torch/kernels/csrc`` on first use); elsewhere they skip.  The
+module imports neither JAX nor the JAX package, so it also runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
+
+Tolerance for float inputs: kernel and plain version both accumulate in f32,
+in different orders, so they agree to a few f32 ulps of the row's absolute
+sum (atol = 1e-5 · max_b Σ_k |x[b, k]|).  int8 inputs make every partial
+sum an integer below 2^24, so those results are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import encoding as tenc
+from repro_torch.kernels import lut_matmul as tlut
+from repro_torch.kernels import tl2_matmul as ttl2
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(seed, B, O, K, int8=False):
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-127, 128, size=(B, K)).astype(np.int8) if int8
+         else rng.normal(size=(B, K)).astype(np.float32))
+    w = rng.integers(-1, 2, size=(O, K)).astype(np.int8)
+    return x, w
+
+
+def _atol(x: torch.Tensor) -> float:
+    return 1e-5 * float(x.double().abs().sum(-1).max()) + 1e-6
+
+
+# ragged B, O and K (K not a multiple of mu=3 or of 10), every row-tile
+# height the kernels are built for (1, 2, 4, 8), and bitnet shapes
+SHAPES = [(1, 130, 301), (2, 37, 50), (3, 37, 50), (9, 130, 301),
+          (4, 640, 2560), (32, 2560, 6912)]
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_lut_gather_kernel_matches_plain(cuda, B, O, K):
+    x, w = _case(5, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    keys = tenc.encode_weight_matrix(wt, 3)
+    xp = torch.nn.functional.pad(xt, (0, keys.shape[1] * 3 - K))
+    n0 = tlut.lut_matmul.launches
+    got = tlut.lut_matmul(xp, keys, 3)
+    assert tlut.lut_matmul.launches == n0 + 1
+    want = tlut.lut_matmul_torch(xp, keys, 3)
+    torch.cuda.synchronize()
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("mu", [2, 4])
+def test_lut_gather_kernel_refuses_other_group_sizes(cuda, mu):
+    x, w = _case(8, 5, 200, 97)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    keys = tenc.encode_weight_matrix(wt, mu)
+    xp = torch.nn.functional.pad(xt, (0, keys.shape[1] * mu - 97))
+    n0 = tlut.lut_matmul.launches
+    with pytest.raises(ValueError, match="mu=3"):
+        tlut.lut_matmul(xp, keys, mu)
+    assert tlut.lut_matmul.launches == n0
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_tl2_kernel_matches_plain(cuda, B, O, K):
+    x, w = _case(6, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    words = ttl2.pack_tl2(wt)
+    n0 = ttl2.tl2_matmul.launches
+    got = ttl2.tl2_matmul(xt.to(torch.bfloat16), words, K)
+    assert ttl2.tl2_matmul.launches == n0 + 1
+    want = ttl2.tl2_matmul_torch(xt.to(torch.bfloat16), words, K)
+    torch.cuda.synchronize()
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES[:5])
+def test_int8_activations_exact_on_card(cuda, B, O, K):
+    x, w = _case(7, B, O, K, int8=True)
+    want = torch.from_numpy(x.astype(np.int64) @ w.T.astype(np.int64))
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    got = ttl2.tl2_matmul(xt, ttl2.pack_tl2(wt), K)
+    assert torch.equal(got.cpu().to(torch.int64), want)
+    keys = tenc.encode_weight_matrix(wt, 3)
+    xp = torch.nn.functional.pad(xt, (0, keys.shape[1] * 3 - K))
+    got = tlut.lut_matmul(xp, keys, 3)
+    assert torch.equal(got.cpu().to(torch.int64), want)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 30), device=cuda)
+    with pytest.raises(ValueError):
+        ttl2.tl2_matmul(x, torch.zeros((4, 3), dtype=torch.int32, device=cuda), 30)
+    with pytest.raises(ValueError):
+        tlut.lut_matmul(x, torch.zeros((4, 10), dtype=torch.uint8), 3)

@@ -1,0 +1,189 @@
+"""The port's ternary-matmul kernels and dispatch against the JAX package.
+
+On the CPU the plain PyTorch versions are held against the Pallas kernels
+(interpret mode) on ragged shapes; the CUDA kernels themselves are held
+against the plain versions by ``tests/test_torch_cuda.py``, which runs only
+where there is a card (``python3 chip_smoke.py`` does the same at the
+model's shapes).
+
+Tolerance for float inputs: both sides accumulate in f32 in different
+orders, so results agree to a few f32 ulps of the row's absolute sum
+(atol = 1e-5 · max_b Σ_k |x[b, k]|).  int8 inputs make every partial sum an
+integer below 2^24, so those results are exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import encoding as jenc
+from repro.kernels import dispatch as jdispatch
+from repro.kernels.lut_matmul import lut_matmul as j_lut_matmul
+from repro.kernels.tl2_matmul import pack_tl2 as j_pack_tl2
+from repro.kernels.tl2_matmul import tl2_matmul as j_tl2_matmul
+from repro_torch.core import encoding as tenc
+from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import lut_matmul as tlut
+from repro_torch.kernels import tl2_matmul as ttl2
+
+
+@pytest.fixture(autouse=True)
+def _port_autotune_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    tdispatch.reset_autotune_cache()
+    yield
+    tdispatch.reset_autotune_cache()
+
+
+def _atol(x):
+    return 1e-5 * float(np.abs(np.asarray(x, np.float64)).sum(-1).max()) + 1e-6
+
+
+def _case(seed, B, O, K, int8=False):
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-127, 128, size=(B, K)).astype(np.int8) if int8
+         else rng.normal(size=(B, K)).astype(np.float32))
+    w = rng.integers(-1, 2, size=(O, K)).astype(np.int8)
+    return x, w
+
+
+# ragged B, O and K (K not a multiple of mu=3 or of 10)
+RAGGED = [(3, 37, 50), (9, 130, 301)]
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_plain_lut_matches_pallas_gather(B, O, K):
+    x, w = _case(0, B, O, K)
+    keys = np.array(jenc.encode_weight_matrix(jnp.asarray(w), 3))
+    xp = np.pad(x, ((0, 0), (0, keys.shape[1] * 3 - K)))
+    want = np.asarray(j_lut_matmul(jnp.asarray(xp), jnp.asarray(keys), 3,
+                                   fetch="gather", interpret=True))
+    got = tlut.lut_matmul(torch.from_numpy(xp), torch.from_numpy(keys), 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
+    np.testing.assert_allclose(got.numpy(), x.astype(np.float64) @ w.T.astype(np.float64),
+                               rtol=0, atol=_atol(x))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_plain_tl2_matches_pallas(B, O, K):
+    x, w = _case(1, B, O, K)
+    words = np.asarray(j_pack_tl2(jnp.asarray(w)))
+    want = np.asarray(j_tl2_matmul(jnp.asarray(x), jnp.asarray(words), K,
+                                   interpret=True))
+    tw = torch.from_numpy(words.view(np.int16))
+    got = ttl2.tl2_matmul(torch.from_numpy(x), tw, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_int8_activations_exact(B, O, K):
+    x, w = _case(2, B, O, K, int8=True)
+    want = x.astype(np.int64) @ w.T.astype(np.int64)
+    tw = ttl2.pack_tl2(torch.from_numpy(w))
+    got = ttl2.tl2_matmul(torch.from_numpy(x), tw, K)
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+    keys = tenc.encode_weight_matrix(torch.from_numpy(w), 3)
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, keys.shape[1] * 3 - K))
+    got = tlut.lut_matmul(xp, keys, 3)
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+
+
+BITNET_KN = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
+
+
+@pytest.mark.parametrize("act", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 32, 256])
+def test_prior_on_cuda_matches_jax_prior_on_tpu(m, act):
+    for k, n in BITNET_KN:
+        want = jdispatch.select_kernel(m, k, n, act, policy="prior",
+                                       backend="tpu").name
+        got = tdispatch.select_kernel(m, k, n, act, policy="prior",
+                                      device="cuda").name
+        assert got == want, (m, k, n, act)
+    # off the card the hand kernels lose to the plain ref, as in the reference
+    assert tdispatch.select_kernel(m, 2560, 2560, act, policy="prior",
+                                   device="cpu").name == "ref"
+
+
+def test_fixed_unported_kernel_raises_keyerror_listing_kernels():
+    with pytest.raises(KeyError, match="lut_gather.*ref.*tl2"):
+        tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:bogus")
+    with pytest.raises(KeyError, match="registered"):
+        tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:dequant_packed")
+
+
+def test_autotune_cache_roundtrip_steers_auto(tmp_path):
+    cache = tdispatch.AutotuneCache(path=str(tmp_path / "c.json"))
+    cache.record(4, 64, 32, "bfloat16", "cpu", "tl2", 1.0)
+    cache.record(4, 64, 32, "bfloat16", "cpu", "ref", 2.0)
+    cache.save()
+    loaded = tdispatch.AutotuneCache.load(cache.path)
+    assert loaded.entries == cache.entries
+    assert tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu",
+                                   cache=loaded).name == "tl2"
+    assert tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu",
+                                   policy="prior", cache=loaded).name == "ref"
+
+
+def test_autotune_cache_reads_schema_2_only(tmp_path):
+    path = tmp_path / "old.json"
+    path.write_text('{"schema_version": 1, "entries": '
+                    '{"M4:K64:N32:mu3:bfloat16:cpu": {"tl2": 1.0}}}')
+    assert tdispatch.AutotuneCache.load(str(path)).entries == {}
+
+
+def test_selection_is_memoized_until_the_process_cache_changes(tmp_path):
+    first = tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu")
+    assert first.name == "ref"
+    assert tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu") is first
+    tdispatch.get_autotune_cache().record(4, 64, 32, "bfloat16", "cpu", "tl2", 1.0)
+    assert tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu").name == "tl2"
+    tdispatch.reset_autotune_cache()
+    assert tdispatch.select_kernel(4, 64, 32, "bfloat16", device="cpu").name == "ref"
+
+
+def test_ternary_weight_derives_encodings_once():
+    _, w = _case(3, 1, 24, 47)
+    packed = tenc.pack_base3(torch.from_numpy(w))
+    tw = tdispatch.TernaryWeight.from_packed(packed, 1.0, 47)
+    assert tw.keys() is tw.keys() and tw.tl2() is tw.tl2()
+    assert np.array_equal(tenc.decode_groups(tw.keys(), 3).reshape(24, -1)[:, :47],
+                          w)
+    assert np.array_equal(ttl2.unpack_tl2(tw.tl2(), 47).numpy(), w)
+
+
+@pytest.mark.parametrize("policy", ["fixed:ref", "fixed:lut_gather", "fixed:tl2"])
+def test_ternary_matmul_scales_and_casts(policy):
+    x, w = _case(4, 5, 20, 33)
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w), 0.5)
+    y = tdispatch.ternary_matmul(torch.from_numpy(x).to(torch.bfloat16), tw,
+                                 policy=policy)
+    assert y.dtype == torch.bfloat16 and y.shape == (5, 20)
+    want = (np.asarray(torch.from_numpy(x).to(torch.bfloat16).float())
+            @ w.T.astype(np.float32)) * 0.5
+    np.testing.assert_allclose(y.float().numpy(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """A tensor off the CPU must reach the kernel or raise; the meta device
+    stands in for a device whose kernel cannot run here."""
+    x = torch.empty((2, 30), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ttl2.tl2_matmul(x, torch.empty((4, 3), dtype=torch.int16, device="meta"), 30)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlut.lut_matmul(x, torch.empty((4, 10), dtype=torch.uint8, device="meta"), 3)
+
+
+def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """The kernels are built from source on first use; without nvcc the
+    build raises, and nothing hands the work to the plain version."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("tl2_matmul")
+    assert not (tmp_path / "build").exists()
