@@ -3,18 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at bitnet-b1.58-2b's projection
-shapes and times it, then serves the full-width model (30 layers, d_model
-2560, random weights from a seed) through ``DecodeEngine`` under
-``ContinuousScheduler``: at batch 4 (the main path, ``lut_gather``), at batch
-1 and with int8 activations (``tl2``).  The kernel phase checks every
-(kernel, M, activation dtype) that dispatch selects on any of those paths,
-decode and prefill alike, and each path asserts that what it selected was
-checked.  Every serving path is driven with the kernels' launch counters set
-to 0 just before it and read just after.  Last, the prefill logits of one
-prompt through the kernels are held against the plain ``ref`` path on the
-card, with bf16 and with int8 activations.
+Builds the six hand-written CUDA kernels from
+``src/repro_torch/kernels/csrc`` (``lut_gather``, ``lut_onehot``, ``tl2``,
+``dequant_packed``, ``w2a8``, ``signflip``), holds each against its plain
+PyTorch version at bitnet-b1.58-2b's projection shapes and times it, then
+serves the full-width model (30 layers, d_model 2560, random weights from a
+seed) through ``DecodeEngine`` under ``ContinuousScheduler`` on these paths:
+
+  * on the analytical prior, with an empty autotune cache: batch 4 (the
+    main path, ``lut_gather``), batch 1 and int8 activations (``tl2``);
+  * autotuned: ``DecodeEngine.autotune_shapes`` times every eligible kernel
+    at the engine's shapes (bf16 and int8, batch 4; twice, to show how far
+    the winners repeat), then batch 4 serves under ``auto`` on those
+    measurements, once with bf16 and once with int8 activations;
+  * pinned, one per newly ported kernel: ``fixed:lut_onehot``,
+    ``fixed:dequant_packed``, ``fixed:signflip`` (bf16) and ``fixed:w2a8``
+    (int8), batch 4.
+
+The kernel phase checks every (kernel, M, activation dtype) that dispatch
+selects on any of those paths, decode and prefill alike (the autotuned
+path's selections are checked once they are known), and each path asserts
+that what it selected was checked.  Every serving path is driven with the
+kernels' launch counters set to 0 just before it and read just after; each
+kernel the path selects must have launched, and no other.  After each path
+the prefill logits of one prompt through its kernels are held against the
+plain ``ref`` path on the card.
 
 Each phase prints one JSON line; a fuller record goes to
 ``smoke_out/chip_smoke.json``.  The last two lines are the kernel summary
@@ -26,12 +39,16 @@ Tolerances:
     orders, so they agree to a few f32 ulps of the row's absolute sum:
     atol = 1e-5 * max_b sum_k |x[b, k]|.  int8 inputs: every partial sum is an
     integer below 2^24, so the results must be equal.
+    ``w2a8`` sums in int32 and must equal the plain version and the int64
+    product.
   * prefill logits, kernels vs ``ref``: the two differ only in the f32
     summation order inside each projection; where that flips a bf16 rounding
     of an activation the change is one bf16 ulp, and through 30 residual
     layers the logits (magnitude < 8) move by a few bf16 ulps at most:
-    atol = 2^-3, four ulps at magnitude 4 to 8.  With int8 activations both
-    sides sum integers exactly, so the same bound holds with room to spare.
+    atol = 2^-3, four ulps at magnitude 4 to 8.  With int8 activations
+    every kernel sums the same integers exactly (int32, or f32 below 2^24)
+    and the same scales follow, so every int8 path (prior, autotuned,
+    ``fixed:w2a8``) must equal ``fixed:ref`` exactly (atol 0).
 """
 
 from __future__ import annotations
@@ -53,15 +70,37 @@ LAYER_KN = {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2, (6912, 2560): 1}
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 LOGIT_ATOL = 2.0 ** -3
 DEVICE = "cuda"
 #: admission prefill chunk of every serving path (the M of prefill matmuls)
 PREFILL_CHUNK = 32
-#: serving paths: name -> (decode batch, activation dtype)
+#: serving paths on the prior: name -> (decode batch, activation dtype)
 PATHS = {"batch4": (4, "bfloat16"), "batch1": (1, "bfloat16"),
          "int8": (4, "int8")}
-#: hand kernels the smoke run checks and counts
-HAND_KERNELS = ("lut_gather", "tl2")
+#: pinned paths (batch 4): name -> (policy, activation dtype)
+PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
+          "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
+          "signflip": ("fixed:signflip", "bfloat16"),
+          "w2a8": ("fixed:w2a8", "int8")}
+#: every hand kernel: name -> (CUDA source, the TPU kernel it replaces, the
+#: (M, act) its summary in the kernels line is taken at)
+SOURCES = {
+    "lut_gather": ("src/repro_torch/kernels/csrc/lut_matmul.cu",
+                   "src/repro/kernels/lut_matmul.py:96", 4, "bfloat16"),
+    "lut_onehot": ("src/repro_torch/kernels/csrc/lut_matmul.cu",
+                   "src/repro/kernels/lut_matmul.py:96", 4, "bfloat16"),
+    "tl2": ("src/repro_torch/kernels/csrc/tl2_matmul.cu",
+            "src/repro/kernels/tl2_matmul.py:176", 1, "bfloat16"),
+    "dequant_packed": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                       "src/repro/kernels/dequant_matmul.py:59", 4,
+                       "bfloat16"),
+    "w2a8": ("src/repro_torch/kernels/csrc/w2a8_matmul.cu",
+             "src/repro/kernels/w2a8_matmul.py:50", 4, "int8"),
+    "signflip": ("src/repro_torch/kernels/csrc/signflip_matmul.cu",
+                 "src/repro/kernels/signflip_matmul.py:48", 4, "bfloat16"),
+}
+HAND_KERNELS = tuple(SOURCES)
 
 RECORD: dict = {}
 
@@ -103,8 +142,11 @@ def time_cold(torch, fn, reps: int, flush) -> float:
 
 def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush):
     from repro_torch.core import encoding
+    from repro_torch.kernels import dequant_matmul as deq
     from repro_torch.kernels import lut_matmul as lut
+    from repro_torch.kernels import signflip_matmul as sf
     from repro_torch.kernels import tl2_matmul as tl2
+    from repro_torch.kernels import w2a8_matmul as w8
     from repro_torch.kernels.dispatch import TernaryWeight
 
     dev = torch.device(DEVICE)
@@ -116,32 +158,62 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush):
         x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
     trits = torch.randint(-1, 2, (n, k), generator=g, device=dev,
                           dtype=torch.int8)
-    w = TernaryWeight.from_packed(encoding.pack_base3(trits), 1.0, k)
+    # base-3 bytes with the serving artifact's 128-byte row padding
+    packed = encoding.pack_base3(trits)
+    packed = torch.nn.functional.pad(packed, (0, (-packed.shape[1]) % 128))
+    w = TernaryWeight.from_packed(packed, 1.0, k)
     mu = w.mu
-    if name == "lut_gather":
+    rate = F32_OPS_PER_S
+    packed_bytes = n * -(-k // encoding.TRITS_PER_BYTE)
+    # ``ops`` is the function's floor on this weight encoding, not what the
+    # kernel's design spends: one add per trit, key or pair and row, plus
+    # the table build where the encoding needs one
+    if name in ("lut_gather", "lut_onehot"):
         keys = w.keys()
         G = keys.shape[1]
         xk = torch.nn.functional.pad(x, (0, G * mu - k))
-        kernel = lambda: lut.lut_matmul(xk, keys, mu)           # noqa: E731
-        plain = lambda: lut.lut_matmul_torch(xk, keys, mu)      # noqa: E731
+        fn, plain_fn = ((lut.lut_matmul, lut.lut_matmul_torch)
+                        if name == "lut_gather" else
+                        (lut.lut_onehot_matmul, lut.lut_onehot_matmul_torch))
+        kernel = lambda: fn(xk, keys, mu)                       # noqa: E731
+        plain = lambda: plain_fn(xk, keys, mu)                  # noqa: E731
         wbytes = keys.numel() * keys.element_size()
-        T = encoding.table_size(mu)
-        ops = m * n * G + m * G * T          # fetch-accumulate + table build
-    else:
+        # whichever fetch computes it: the table build, then one add per
+        # key and row
+        ops = m * G * encoding.table_size(mu) + m * n * G
+    elif name == "tl2":
         words = w.tl2()
-        xk = x
-        kernel = lambda: tl2.tl2_matmul(xk, words, k)           # noqa: E731
-        plain = lambda: tl2.tl2_matmul_torch(xk, words, k)      # noqa: E731
+        kernel = lambda: tl2.tl2_matmul(x, words, k)            # noqa: E731
+        plain = lambda: tl2.tl2_matmul_torch(x, words, k)       # noqa: E731
         wbytes = words.numel() * words.element_size()
         Q = words.shape[1] * tl2.PAIRS_PER_WORD
         ops = m * n * Q + m * Q * 9          # fetch-accumulate + table build
+    elif name == "dequant_packed":
+        kernel = lambda: deq.packed_matmul(x, packed, k)        # noqa: E731
+        plain = lambda: deq.packed_matmul_torch(x, packed, k)   # noqa: E731
+        wbytes = packed_bytes                # the padding is never read
+        ops = m * n * k
+    elif name == "w2a8":
+        kernel = lambda: w8.w2a8_matmul(x, packed, k)           # noqa: E731
+        plain = lambda: w8.w2a8_matmul_torch(x, packed, k)      # noqa: E731
+        wbytes = packed_bytes
+        ops = m * n * k
+        rate = INT8_OPS_PER_S
+    elif name == "signflip":
+        wt = w.trits()
+        kernel = lambda: sf.signflip_matmul(x, wt)              # noqa: E731
+        plain = lambda: sf.signflip_matmul_torch(x, wt)         # noqa: E731
+        wbytes = wt.numel()
+        ops = m * n * k
+    else:
+        raise KeyError(name)
     wd = trits.to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     library = lambda: torch.matmul(xb, wd.T)                    # noqa: E731
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = float((got.double() - want.double()).abs().max())
     if act == "int8":
         exact = torch.equal(got, want) and torch.equal(
             got.cpu().to(torch.int64),
@@ -157,7 +229,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush):
                                  f"{err} > {tol}")
     nbytes = x.numel() * x.element_size() + wbytes + m * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     row = {"kernel": name, "M": m, "K": k, "N": n, "act": act,
            "max_abs_err": err, "tol": tol,
            "ms": time_cold(torch, kernel, 20, flush),
@@ -165,41 +237,47 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush):
            "library_ms": time_cold(torch, library, 20, flush),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "ops": ops}
+           "bytes": nbytes, "ops": ops, "ops_per_s": rate}
     return row
 
 
-def path_selection(batch: int, act: str) -> dict:
+def path_selection(batch: int, act: str, policy: str | None = None) -> dict:
     """What dispatch selects on one serving path: ``{(M, K, N): kernel}``
     for its decode M (the batch) and its prefill M (the chunk)."""
     from repro_torch.kernels.dispatch import select_kernel
 
-    return {(m, k, n): select_kernel(m, k, n, act).name
+    return {(m, k, n): select_kernel(m, k, n, act, policy=policy).name
             for m in (batch, PREFILL_CHUNK) for k, n in LAYER_KN}
 
 
+def selected_cases(selection: dict, act: str) -> set:
+    """The ``(kernel, M, act)`` of the hand kernels in a path selection."""
+    return {(name, m, act) for (m, _, _), name in selection.items()
+            if name in HAND_KERNELS}
+
+
 def kernel_cases() -> list[tuple]:
-    """``(kernel, M, act)`` to check: bitnet's decode points at batch 4, 1, 2
-    and int8 batch 4, plus every one that a serving path selects."""
+    """``(kernel, M, act)`` to check before serving: bitnet's decode points
+    at batch 4, 1, 2 and int8 batch 4, each newly ported kernel at decode
+    (M=4) and prefill (M=32), plus every one that a prior or pinned serving
+    path selects."""
     cases = {("lut_gather", 4, "bfloat16"), ("lut_gather", 32, "bfloat16"),
              ("tl2", 1, "bfloat16"), ("tl2", 2, "bfloat16"),
              ("tl2", 4, "int8")}
     for batch, act in PATHS.values():
-        cases |= {(name, m, act)
-                  for (m, _, _), name in path_selection(batch, act).items()
-                  if name in HAND_KERNELS}
+        cases |= selected_cases(path_selection(batch, act), act)
+    for policy, act in PINNED.values():
+        cases |= selected_cases(path_selection(4, act, policy), act)
     return sorted(cases)
 
 
-def check_kernels(torch, cases) -> list[dict]:
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+def check_kernels(torch, cases, flush) -> list[dict]:
     rows = []
     for name, m, act in cases:
         for k, n in LAYER_KN:
             row = kernel_case(torch, name, m, k, n, act, flush)
             emit("kernel", **row)
             rows.append(row)
-    del flush
     return rows
 
 
@@ -212,8 +290,8 @@ def layer_summary(rows: list[dict], name: str, m: int, act: str) -> dict:
            for key in ("ms", "plain_ms", "library_ms")}
     t_bytes = sum(sel[kn]["bytes"] * c for kn, c in LAYER_KN.items()) \
         / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(sel[kn]["ops"] * c for kn, c in LAYER_KN.items()) \
-        / F32_OPS_PER_S * 1e3
+    t_ops = sum(sel[kn]["ops"] / sel[kn]["ops_per_s"] * c
+                for kn, c in LAYER_KN.items()) * 1e3
     return {**tot, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -224,22 +302,6 @@ def layer_summary(rows: list[dict], name: str, m: int, act: str) -> dict:
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
-
-
-def counters():
-    from repro_torch.kernels.lut_matmul import lut_matmul
-    from repro_torch.kernels.tl2_matmul import tl2_matmul
-
-    return {"lut_gather": lut_matmul, "tl2": tl2_matmul}
-
-
-def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
 
 
 def make_requests(lengths, new_tokens: int, vocab: int, seed: int):
@@ -253,17 +315,20 @@ def make_requests(lengths, new_tokens: int, vocab: int, seed: int):
 
 
 def serve_path(torch, served, cfg, *, batch: int, lengths, new_tokens: int,
-               expect: str, checked: set, forbid: str | None = None) -> dict:
-    """Serve one path and return its record.  A one-request warm-up first
-    derives the kernels' weight encodings (set-up, untimed); then the
-    counters are set to 0, the requests are served, and the counters read.
-    Every hand kernel the path selects must be in ``checked``."""
+               checked: set) -> dict:
+    """Serve one path (``cfg.matmul_policy``) and return its record.  A
+    one-request warm-up first derives the kernels' weight encodings (set-up,
+    untimed); then the counters are set to 0, the requests are served, and
+    the counters read.  Every hand kernel the path selects must be in
+    ``checked`` and must have launched; no other hand kernel may have."""
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
     from repro_torch.serving.engine import DecodeEngine
 
     act = "int8" if cfg.act_dtype == "int8" else cfg.dtype
-    selection = path_selection(batch, act)
-    unchecked = sorted({(name, m, act) for (m, _, _), name in selection.items()
-                        if name in HAND_KERNELS} - checked)
+    selection = path_selection(batch, act, cfg.matmul_policy)
+    expect = {name for name, _, _ in selected_cases(selection, act)}
+    unchecked = sorted(selected_cases(selection, act) - checked)
     if unchecked:
         raise AssertionError(f"path selects kernels the kernel phase did not "
                              f"check: {unchecked}")
@@ -275,27 +340,29 @@ def serve_path(torch, served, cfg, *, batch: int, lengths, new_tokens: int,
     engine.serve(make_requests([lengths[0]], 2, cfg.vocab_size, SEED + 99))
     torch.cuda.synchronize()
     reqs = make_requests(lengths, new_tokens, cfg.vocab_size, SEED + batch)
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     engine.serve(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     for r in reqs:
         if not (r.done and len(r.out) == new_tokens) or \
                 not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid} ended with {r.out} "
                                  f"(done={r.done})")
-    if counts[expect] <= 0:
-        raise AssertionError(f"{expect} never launched on this path: {counts}")
-    if forbid is not None and counts[forbid] != 0:
-        raise AssertionError(f"{forbid} launched on this path: {counts}")
+    wrong = {name: c for name, c in counts.items()
+             if (c > 0) != (name in expect)}
+    if wrong:
+        raise AssertionError(f"launches {counts} disagree with the path's "
+                             f"selected hand kernels {sorted(expect)}")
     selected = {f"M{m}:K{k}:N{n}": name
                 for (m, k, n), name in selection.items()}
     n_tok = sum(len(r.out) for r in reqs)
     step_ms = decode_step_ms(torch, engine, cfg)
     del engine
-    return {"batch": batch, "requests": len(reqs), "prompt_lengths": lengths,
+    return {"policy": cfg.matmul_policy or "auto", "act": act,
+            "batch": batch, "requests": len(reqs), "prompt_lengths": lengths,
             "new_tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
             "decode_step_ms": step_ms, "launches": counts,
             "selected": selected}
@@ -320,9 +387,10 @@ def decode_step_ms(torch, engine, cfg, steps: int = 10) -> float:
 
 
 def cross_check(torch, served, cfg) -> dict:
-    """Prefill logits of one prompt through the kernels (auto) and through
-    ``fixed:ref``, chunk by chunk as admission runs it, at ``cfg``'s
-    activation dtype."""
+    """Prefill logits of one prompt through the path's kernels
+    (``cfg.matmul_policy``) and through ``fixed:ref``, chunk by chunk as
+    admission runs it, at ``cfg``'s activation dtype: within ``LOGIT_ATOL``
+    with float activations, equal with int8 ones."""
     import numpy as np
 
     from repro_torch.models.decode import (bind_serving_weights, init_cache,
@@ -330,8 +398,10 @@ def cross_check(torch, served, cfg) -> dict:
 
     prompt = np.random.default_rng(SEED + 5).integers(2, cfg.vocab_size,
                                                       size=45)
+    path = cfg.matmul_policy or "auto"
+    atol = 0.0 if cfg.act_dtype == "int8" else LOGIT_ATOL
     logits = {}
-    for policy in ("auto", "fixed:ref"):
+    for policy in (path, "fixed:ref"):
         c = cfg.with_(matmul_policy=policy)
         p = bind_serving_weights(served, c)
         cache = init_cache(c, 1, 256, device=DEVICE)
@@ -346,20 +416,55 @@ def cross_check(torch, served, cfg) -> dict:
             cache, out = prefill_chunk(p, c, cache, toks, pos, valid - 1)
         logits[policy] = out[0, :cfg.vocab_size].float()
         del p, cache
-    kern, ref = logits["auto"], logits["fixed:ref"]
+    kern, ref = logits[path], logits["fixed:ref"]
     if not (torch.isfinite(kern).all() and torch.isfinite(ref).all()):
         raise AssertionError("non-finite prefill logits")
     diff = float((kern - ref).abs().max())
-    if not diff <= LOGIT_ATOL:
-        raise AssertionError(f"prefill logits: kernels vs ref max abs diff "
-                             f"{diff} > {LOGIT_ATOL}")
-    return {"act_dtype": cfg.act_dtype, "max_abs_diff": diff,
-            "atol": LOGIT_ATOL,
+    if not diff <= atol:
+        raise AssertionError(f"prefill logits: {path} vs ref max abs diff "
+                             f"{diff} > {atol}")
+    return {"policy": path,
+            "act_dtype": cfg.act_dtype, "max_abs_diff": diff, "atol": atol,
             "max_abs_logit": float(ref.abs().max()),
             "argmax_equal": bool(kern.argmax() == ref.argmax())}
 
 
 # ---------------------------------------------------------------------------
+
+
+def autotune_phase(torch, served, cfg) -> dict:
+    """``DecodeEngine.autotune_shapes`` at batch 4 for ``cfg``'s activation
+    dtype; one line per shape with every eligible kernel's µs and the
+    winner.  Every eligible hand kernel must have a time at every shape."""
+    from repro_torch.kernels.dispatch import eligible_kernels
+    from repro_torch.serving.engine import DecodeEngine
+
+    act = "int8" if cfg.act_dtype == "int8" else cfg.dtype
+    engine = DecodeEngine(served, cfg, batch_size=4, max_len=256,
+                          prefill_chunk=PREFILL_CHUNK, device=DEVICE)
+    t0 = time.perf_counter()
+    first = engine.autotune_shapes()
+    seconds = time.perf_counter() - t0
+    # the cache keeps the second measurement; the first shows whether the
+    # winners repeat from one measurement to the next
+    results = engine.autotune_shapes()
+    del engine
+    table = {}
+    for (m, k, n), us in sorted(results.items()):
+        want = {s.name for s in eligible_kernels(m, k, n, act)}
+        if set(us) != want or not all(t > 0 for t in us.values()):
+            raise AssertionError(f"autotune M{m} K{k} N{n} {act}: timed "
+                                 f"{sorted(us)}, eligible {sorted(want)}")
+        winner = min(us, key=us.get)
+        before = first[(m, k, n)]
+        emit("autotune", act=act, M=m, K=k, N=n, us=us, winner=winner,
+             first_us=before, first_winner=min(before, key=before.get))
+        table[f"M{m}:K{k}:N{n}"] = {"us": us, "winner": winner,
+                                    "first_us": before}
+    return {"act": act, "seconds": seconds, "shapes": table,
+            "winners_repeated": sum(
+                min(first[s], key=first[s].get) == min(r, key=r.get)
+                for s, r in results.items())}
 
 
 def main() -> int:
@@ -369,12 +474,15 @@ def main() -> int:
         print("chip_smoke: no CUDA card; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    # the analytical prior decides every kernel here: no autotune entries
-    # from elsewhere
-    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
-        OUT_DIR, "autotune-unused.json")
+    # a fresh autotune cache of this run's own: the prior paths run on it
+    # empty, the autotuned path on what this run measured
+    cache_path = os.path.join(OUT_DIR, "autotune.json")
+    if os.path.exists(cache_path):
+        os.unlink(cache_path)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_path
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch import get_autotune_cache
     from repro_torch.models.decode import quantize_for_serving
     from repro_torch.models.model import init_params
 
@@ -388,13 +496,15 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["lut_matmul", "tl2_matmul"])
+    logs = _build.build_all(["lut_matmul", "tl2_matmul", "dequant_matmul",
+                             "w2a8_matmul", "signflip_matmul"])
     usage = {name: re.findall(r"Used \d+ registers[^\n]*", log)
              for name, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=usage)
 
     cases = kernel_cases()
-    rows = check_kernels(torch, cases)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    rows = check_kernels(torch, cases, flush)
     checked = set(cases)
 
     cfg = get_config(ARCH)
@@ -411,32 +521,47 @@ def main() -> int:
 
     paths = {}
     lengths = [3, 120, 17, 64, 33, 96, 5, 48]
+    short = [3, 40, 20, 9]
     cfg8 = cfg.with_(act_dtype="int8")
-    paths["batch4"] = serve_path(torch, served, cfg, batch=PATHS["batch4"][0],
-                                 lengths=lengths, new_tokens=16,
-                                 expect="lut_gather", forbid="tl2",
-                                 checked=checked)
-    emit("serve_batch4", **paths["batch4"])
-    paths["batch1"] = serve_path(torch, served, cfg, batch=PATHS["batch1"][0],
-                                 lengths=[40], new_tokens=16, expect="tl2",
-                                 checked=checked)
-    emit("serve_batch1", **paths["batch1"])
-    paths["int8"] = serve_path(torch, served, cfg8, batch=PATHS["int8"][0],
-                               lengths=[3, 40, 20, 9], new_tokens=4,
-                               expect="tl2", forbid="lut_gather",
-                               checked=checked)
-    emit("serve_int8", **paths["int8"])
 
+    def run_path(name, c, **kw):
+        paths[name] = serve_path(torch, served, c, checked=checked, **kw)
+        emit(f"serve_{name}", **paths[name])
+        torch.cuda.empty_cache()
+
+    # 1. the prior, on the empty cache
+    if get_autotune_cache().entries:
+        raise AssertionError("the autotune cache is not empty")
+    run_path("batch4", cfg, batch=4, lengths=lengths, new_tokens=16)
+    run_path("batch1", cfg, batch=1, lengths=[40], new_tokens=16)
+    run_path("int8", cfg8, batch=4, lengths=short, new_tokens=4)
     for c in (cfg, cfg8):
         emit("cross_check", **cross_check(torch, served, c))
 
-    sources = {"lut_gather": ("src/repro_torch/kernels/csrc/lut_matmul.cu",
-                              "src/repro/kernels/lut_matmul.py:96", 4,
-                              "bfloat16"),
-               "tl2": ("src/repro_torch/kernels/csrc/tl2_matmul.cu",
-                       "src/repro/kernels/tl2_matmul.py:176", 1, "bfloat16")}
+    # 2. autotuned: measure, check whatever the measurements now select,
+    # serve under auto
+    tuned = {c.act_dtype: autotune_phase(torch, served, c)
+             for c in (cfg, cfg8)}
+    RECORD["autotune"] = tuned
+    more = sorted((selected_cases(path_selection(4, "bfloat16"), "bfloat16")
+                   | selected_cases(path_selection(4, "int8"), "int8"))
+                  - checked)
+    rows += check_kernels(torch, more, flush)
+    checked |= set(more)
+    run_path("autotuned", cfg, batch=4, lengths=lengths, new_tokens=16)
+    emit("cross_check", **cross_check(torch, served, cfg))
+    run_path("autotuned_int8", cfg8, batch=4, lengths=short, new_tokens=4)
+    emit("cross_check", **cross_check(torch, served, cfg8))
+
+    # 3. one pinned path per newly ported kernel
+    for name, (policy, act) in PINNED.items():
+        c = (cfg8 if act == "int8" else cfg).with_(matmul_policy=policy)
+        run_path(f"pinned_{name}", c, batch=4, lengths=short, new_tokens=4)
+        emit("cross_check", **cross_check(torch, served, c))
+    del flush
+
     kernels = []
-    for name, (src, replaces, m, act) in sources.items():
+    for name, (src, replaces, m, act) in SOURCES.items():
         s = layer_summary(rows, name, m, act)
         kernels.append({
             "name": name, "route": "cuda", "source": src,

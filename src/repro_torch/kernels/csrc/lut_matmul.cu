@@ -1,11 +1,19 @@
-// Two-phase LUT ternary matmul, gather fetch, for Hopper (sm_90a).
+// Two-phase LUT ternary matmul for Hopper (sm_90a), with both fetch
+// lowerings of the reference.
 //
 // Replaces the Pallas TPU kernel repro/kernels/lut_matmul.py::lut_matmul
-// (body _lut_kernel, fetch="gather"; registry name lut_gather):
-//   y[b, o] = sum_g sign(key[o, g]) * table[b, g, idx(key[o, g])]
+// (body _lut_kernel), both of its fetches:
+//   * fetch="gather" (registry name lut_gather, entry lut_gather_matmul_f32):
+//       y[b, o] = sum_g sign(key[o, g]) * table[b, g, idx(key[o, g])]
+//   * fetch="onehot" (registry name lut_onehot, entry lut_onehot_matmul_f32):
+//       y[b, o] = sum_g sum_t table[b, g, t] * onehot[o, g, t],
+//       onehot[o, g, t] = sign(key[o, g]) if t == idx(key[o, g]) else 0,
+//     the contraction of the tables with the signed one-hot over all T+1
+//     entries (the MXU form on the TPU; here f32 FMAs on the CUDA cores);
 //   table[b, g, t] = dot(C[t], x[b, g*mu : (g+1)*mu])   (t < T; entry T = 0)
 // with key = sym << idx_bits | idx, C the [T+1, mu] combo matrix of the
-// positive-half ternary combos (row T all zero) and f32 accumulation.
+// positive-half ternary combos (row T all zero) and f32 accumulation.  Both
+// fetches give the same sums: every one-hot product but one is a signed zero.
 //
 // What bounds it on the H100: at decode M (a handful of rows) the work is a
 // stream over the weight keys, one byte per mu=3 group (2.67 bits per
@@ -32,6 +40,10 @@
 // decode (5 to 54 at bitnet's shapes, on 132 SMs), each a single 4-warp
 // block with the whole K loop, so it is bound by latency rather than bytes;
 // keys re-read once per BB-row tile at prefill; no asynchronous copies.
+// The one-hot fetch does T+1 = 14 FMAs per key and row where the gather
+// does one read, so it is bound by those operations (2*M*N*G*14 flops over
+// the 67 TFLOP/s f32 rate, above the key bytes' time at every M); a
+// tensor-core version (TF32, or bf16-split tables) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,9 +81,9 @@ __host__ __device__ constexpr int step_groups() {
                            (BB * Lut<MU>::T1 * 4 + BO + BB * MU * 4)), 8, 64);
 }
 
-template <int MU, int BB>
+template <int MU, int BB, bool ONEHOT>
 __global__ void __launch_bounds__(BO)
-lut_gather_kernel(const float* __restrict__ x, const uint8_t* __restrict__ keys,
+lut_kernel(const float* __restrict__ x, const uint8_t* __restrict__ keys,
                   float* __restrict__ out, int M, int N, int G) {
   constexpr int T1 = Lut<MU>::T1;
   constexpr int T = Lut<MU>::T;
@@ -139,18 +151,39 @@ lut_gather_kernel(const float* __restrict__ x, const uint8_t* __restrict__ keys,
       tables[e] = s;
     }
     __syncthreads();
-    // fetch phase: one key per group, one table read per row
+    // fetch phase
     if (o < N) {
       const uint8_t* kr = ks + tid * KSTRIDE;
-#pragma unroll 8
-      for (int g = 0; g < ng; ++g) {
-        const int key = kr[g];
-        const float* tg = tables + g * T1 + (key & ((1 << IB) - 1));
-        const bool neg = (key >> IB) != 0;
+      if constexpr (ONEHOT) {
+        // signed one-hot over the T+1 entries, contracted with each row's
+        // tables (the same table entries for every thread: broadcast reads)
+#pragma unroll 2
+        for (int g = 0; g < ng; ++g) {
+          const int key = kr[g];
+          const int idx = key & ((1 << IB) - 1);
+          const float sgn = (key >> IB) != 0 ? -1.f : 1.f;
+          float oh[T1];
 #pragma unroll
-        for (int b = 0; b < BB; ++b) {
-          const float v = tg[b * BG * T1];
-          acc[b] += neg ? -v : v;
+          for (int t = 0; t < T1; ++t) oh[t] = t == idx ? sgn : 0.f;
+#pragma unroll
+          for (int b = 0; b < BB; ++b) {
+            const float* tb = tables + (b * BG + g) * T1;
+#pragma unroll
+            for (int t = 0; t < T1; ++t) acc[b] = fmaf(tb[t], oh[t], acc[b]);
+          }
+        }
+      } else {
+        // gather: one key per group, one table read per row
+#pragma unroll 8
+        for (int g = 0; g < ng; ++g) {
+          const int key = kr[g];
+          const float* tg = tables + g * T1 + (key & ((1 << IB) - 1));
+          const bool neg = (key >> IB) != 0;
+#pragma unroll
+          for (int b = 0; b < BB; ++b) {
+            const float v = tg[b * BG * T1];
+            acc[b] += neg ? -v : v;
+          }
         }
       }
     }
@@ -163,34 +196,44 @@ lut_gather_kernel(const float* __restrict__ x, const uint8_t* __restrict__ keys,
   }
 }
 
-template <int MU, int BB>
+template <int MU, int BB, bool ONEHOT>
 void launch(const void* x, const void* keys, void* out, int M, int N, int G,
             cudaStream_t stream) {
   dim3 grid((N + BO - 1) / BO, (M + BB - 1) / BB);
-  lut_gather_kernel<MU, BB><<<grid, BO, 0, stream>>>(
+  lut_kernel<MU, BB, ONEHOT><<<grid, BO, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const uint8_t*>(keys),
       static_cast<float*>(out), M, N, G);
 }
 
-template <int MU>
+template <int MU, bool ONEHOT>
 void launch_rows(const void* x, const void* keys, void* out, int M, int N,
                  int G, cudaStream_t stream) {
-  if (M <= 1) launch<MU, 1>(x, keys, out, M, N, G, stream);
-  else if (M <= 2) launch<MU, 2>(x, keys, out, M, N, G, stream);
-  else if (M <= 4) launch<MU, 4>(x, keys, out, M, N, G, stream);
-  else launch<MU, 8>(x, keys, out, M, N, G, stream);
+  if (M <= 1) launch<MU, 1, ONEHOT>(x, keys, out, M, N, G, stream);
+  else if (M <= 2) launch<MU, 2, ONEHOT>(x, keys, out, M, N, G, stream);
+  else if (M <= 4) launch<MU, 4, ONEHOT>(x, keys, out, M, N, G, stream);
+  else launch<MU, 8, ONEHOT>(x, keys, out, M, N, G, stream);
 }
 
 }  // namespace
 
-// x: [M, G*mu] f32 (zero-padded past the logical K); keys: [N, G] uint8;
-// out: [M, N] f32, unscaled.  Built for mu = 3 only, the group size of every
-// configuration the port serves.  Launches on `stream`; returns the launch
-// error (cudaErrorInvalidValue for any other mu).
+// Both entry points: x: [M, G*mu] f32 (zero-padded past the logical K);
+// keys: [N, G] uint8; out: [M, N] f32, unscaled.  Built for mu = 3 only, the
+// group size of every configuration the port serves.  Launch on `stream`;
+// return the launch error (cudaErrorInvalidValue for any other mu).
 extern "C" int lut_gather_matmul_f32(const void* x, const void* keys, void* out,
                                      int M, int N, int G, int mu,
                                      void* stream) {
   if (mu != 3) return static_cast<int>(cudaErrorInvalidValue);
-  launch_rows<3>(x, keys, out, M, N, G, static_cast<cudaStream_t>(stream));
+  launch_rows<3, false>(x, keys, out, M, N, G,
+                        static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lut_onehot_matmul_f32(const void* x, const void* keys, void* out,
+                                     int M, int N, int G, int mu,
+                                     void* stream) {
+  if (mu != 3) return static_cast<int>(cudaErrorInvalidValue);
+  launch_rows<3, true>(x, keys, out, M, N, G,
+                       static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

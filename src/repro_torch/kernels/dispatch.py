@@ -1,21 +1,30 @@
 """Unified ternary-matmul dispatch: one entry point, several kernels.
 
-The port's registry holds the kernels ported so far:
+The port's registry holds the reference's dense registry, in its order:
 
   * ``ref``: plain PyTorch, unpack then an f32 matmul (the oracle, and the
     fastest CPU path);
-  * ``lut_gather``: the paper's two-phase LUT, hand-written CUDA
+  * ``lut_onehot`` / ``lut_gather``: the paper's two-phase LUT with the
+    signed one-hot or the gather fetch, hand-written CUDA
     (``kernels/lut_matmul.py``);
+  * ``dequant_packed``: the dequant baseline on base-3 bytes, hand-written
+    CUDA (``kernels/dequant_matmul.py``);
+  * ``signflip``: the sign-flip baseline on int8 trits, hand-written CUDA
+    (``kernels/signflip_matmul.py``);
+  * ``w2a8``: exact int8 × trit → int32, int8 activations only, hand-written
+    CUDA (``kernels/w2a8_matmul.py``);
   * ``tl2``: the two-trit 9-entry LUT, hand-written CUDA
-    (``kernels/tl2_matmul.py``).
+    (``kernels/tl2_matmul.py``);
+  * ``tl2_ref``: the plain PyTorch TL2 product (``tl2_matmul_torch``).
 
 Selection follows the reference exactly: an autotune cache keyed on
-``(M, K, N, mu, act_dtype, backend)`` when it has a measurement, else the
-analytical static prior (per-MAC gate cost from the paper's area model plus
-the weight bytes streamed), ties broken by name.  The prior's penalty for a
-kernel that cannot run natively here becomes: a hand-written kernel whose
-tensors are not on CUDA.  On ``cuda`` the prior therefore picks what the
-reference picks on its accelerator backend.
+``(M, K, N, mu, act_dtype, backend)`` when it has a measurement
+(:func:`autotune` takes them), else the analytical static prior (per-MAC
+gate cost from the paper's area model plus the weight bytes streamed), ties
+broken by name.  The prior's penalty for a kernel that cannot run natively
+here becomes: a hand-written kernel whose tensors are not on CUDA.  On
+``cuda`` the prior therefore picks what the reference picks on its
+accelerator backend.
 
 Shape convention: ``x [..., K]``, weights ``[N, K]`` (out-major), result
 ``[..., N]``.  Kernels return the *unscaled* product in f32; the weight
@@ -28,16 +37,23 @@ import json
 import math
 import os
 import tempfile
+import time
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import encoding
-from repro_torch.kernels.lut_matmul import lut_matmul
+from repro_torch.device import resolve_device
+from repro_torch.kernels.dequant_matmul import packed_matmul
+from repro_torch.kernels.lut_matmul import lut_matmul, lut_onehot_matmul
+from repro_torch.kernels.signflip_matmul import signflip_matmul
 from repro_torch.kernels.tl2_matmul import (TRITS_PER_WORD, pack_tl2,
-                                            repack_base3_to_tl2, tl2_matmul)
+                                            repack_base3_to_tl2, tl2_matmul,
+                                            tl2_matmul_torch)
+from repro_torch.kernels.w2a8_matmul import w2a8_matmul
 
 CACHE_PATH_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 
@@ -59,9 +75,10 @@ class TernaryWeight:
     """A ternary ``[N, K]`` weight (out-major) with its absmean ``scale``.
 
     Built from base-3 packed bytes (the serving artifact) or int8 trits.
-    Each kernel's encoding (dense trits, mu-group LUT keys, TL2 words) is
-    derived once, on first use, on the weight's device, and kept: a weight
-    bound once serves every later step without re-deriving it.
+    Each kernel's encoding (dense trits, base-3 bytes, mu-group LUT keys,
+    TL2 words) is derived once, on first use, on the weight's device, and
+    kept: a weight bound once serves every later step without re-deriving
+    it.
     """
 
     def __init__(self, w_t: torch.Tensor | None = None, scale=1.0, *,
@@ -105,10 +122,16 @@ class TernaryWeight:
         return encoding.unpack_base3(self._packed, self._k)
 
     def trits(self) -> torch.Tensor:
-        """Dense ``[N, K]`` int8 trits (ref path)."""
+        """Dense ``[N, K]`` int8 trits (ref/signflip paths)."""
         if self._w_t is None:
             self._w_t = self._trits_uncached()
         return self._w_t
+
+    def packed(self) -> torch.Tensor:
+        """Base-3 packed bytes ``[N, ceil(K/5)]`` (dequant/w2a8 paths)."""
+        if self._packed is None:
+            self._packed = encoding.pack_base3(self._w_t)
+        return self._packed
 
     def keys(self, mu: int | None = None) -> torch.Tensor:
         """Group keys ``[N, ceil(K/mu)]`` (LUT path)."""
@@ -140,13 +163,22 @@ class KernelSpec:
     name: str
     run: Callable
     act_dtypes: frozenset
-    hand: bool                        # hand-written CUDA kernel
+    #: the hand-written CUDA kernel's wrapper (its ``launches`` counts its
+    #: launches); None for the plain PyTorch entries
+    kernel: Callable | None
     prior_per_mac: Callable           # (K, N, coeffs, mu) -> gates per MAC
     weight_bytes: Callable            # (K, N, mu) -> weight bytes streamed
     describe: str = ""
+    constraint: Callable | None = None  # (M, K, N, act_dtype) -> bool
+
+    @property
+    def hand(self) -> bool:
+        return self.kernel is not None
 
     def supports(self, m: int, k: int, n: int, act_dtype: str) -> bool:
-        return act_dtype in self.act_dtypes
+        if act_dtype not in self.act_dtypes:
+            return False
+        return self.constraint is None or self.constraint(m, k, n, act_dtype)
 
 
 REGISTRY: dict[str, KernelSpec] = {}
@@ -171,24 +203,63 @@ def eligible_kernels(m: int, k: int, n: int, act_dtype: str) -> list[KernelSpec]
     return [s for s in REGISTRY.values() if s.supports(m, k, n, act_dtype)]
 
 
+def launch_counts() -> dict[str, int]:
+    """Launches of each hand kernel, by registry name, since its count was
+    last set to 0."""
+    return {s.name: s.kernel.launches for s in REGISTRY.values() if s.hand}
+
+
+def reset_launch_counts() -> None:
+    for s in REGISTRY.values():
+        if s.hand:
+            s.kernel.launches = 0
+
+
 def _run_ref(x2, w, mu):
     return x2.to(torch.float32) @ w.trits().to(torch.float32).T
 
 
-def _run_lut_gather(x2, w, mu):
-    keys = w.keys(mu)
-    pad = keys.shape[-1] * mu - x2.shape[-1]
-    if pad:
-        x2 = torch.nn.functional.pad(x2, (0, pad))
-    return lut_matmul(x2, keys, mu)
+def _run_lut(kernel):
+    def run(x2, w, mu):
+        keys = w.keys(mu)
+        pad = keys.shape[-1] * mu - x2.shape[-1]
+        if pad:
+            x2 = torch.nn.functional.pad(x2, (0, pad))
+        return kernel(x2, keys, mu)
+
+    return run
+
+
+def _run_dequant(x2, w, mu):
+    return packed_matmul(x2, w.packed(), w.in_features)
+
+
+def _run_signflip(x2, w, mu):
+    return signflip_matmul(x2, w.trits())
+
+
+def _run_w2a8(x2, w, mu):
+    return w2a8_matmul(x2, w.packed(), w.in_features).to(torch.float32)
 
 
 def _run_tl2(x2, w, mu):
     return tl2_matmul(x2, w.tl2(), w.in_features)
 
 
+def _run_tl2_ref(x2, w, mu):
+    return tl2_matmul_torch(x2, w.tl2(), w.in_features)
+
+
 def _per_mac_lut(k, n, c, mu):
     return cm.area_per_throughput(mu, max(k, mu), max(n, 1), c)
+
+
+def _per_mac_dequant(k, n, c, mu):
+    return cm.area_gates_dequant_baseline(k, n, c) / max(k * n, 1)
+
+
+def _per_mac_signflip(k, n, c, mu):
+    return cm.area_gates_signflip_baseline(k, n, c) / max(k * n, 1)
 
 
 def _per_mac_tl2(k, n, c, mu):
@@ -204,6 +275,14 @@ def _bytes_dense(k, n, mu):
     return 2.0 * k * n          # bf16 dense weights
 
 
+def _bytes_trits(k, n, mu):
+    return float(k * n)         # int8 trit stream (signflip)
+
+
+def _bytes_packed(k, n, mu):
+    return n * math.ceil(k / encoding.TRITS_PER_BYTE)   # 1.6 b/w base-3
+
+
 def _bytes_keys(k, n, mu):
     nbytes = 1 if encoding.key_bits(mu) <= 8 else 2
     return n * math.ceil(k / mu) * nbytes
@@ -213,22 +292,65 @@ def _bytes_tl2(k, n, mu):
     return 2.0 * n * math.ceil(k / TRITS_PER_WORD)
 
 
+def _bytes_tl2_onehot_f32(k, n, mu):
+    # the plain TL2 product materializes the decoded [N, ceil(K/2), 9] f32
+    # one-hot through memory; the reference charges that stream, so the
+    # prior never picks it over a kernel on the card
+    return 4.0 * 9.0 * n * math.ceil(k / 2)
+
+
 register_kernel(KernelSpec(
-    name="ref", run=_run_ref, act_dtypes=_ALL_DTYPES, hand=False,
+    name="ref", run=_run_ref, act_dtypes=_ALL_DTYPES, kernel=None,
     prior_per_mac=_per_mac_dense, weight_bytes=_bytes_dense,
     describe="plain PyTorch f32 matmul over decoded trits (oracle + CPU "
              "serving path)"))
 
 register_kernel(KernelSpec(
-    name="lut_gather", run=_run_lut_gather, act_dtypes=_ALL_DTYPES, hand=True,
+    name="lut_onehot", run=_run_lut(lut_onehot_matmul),
+    act_dtypes=_ALL_DTYPES, kernel=lut_onehot_matmul,
     prior_per_mac=_per_mac_lut, weight_bytes=_bytes_keys,
-    describe="two-phase LUT CUDA kernel, shared-memory tables, gather fetch"))
+    describe="two-phase LUT CUDA kernel, shared-memory tables, signed "
+             "one-hot fetch contraction",
+    constraint=lambda m, k, n, d: True))
 
 register_kernel(KernelSpec(
-    name="tl2", run=_run_tl2, act_dtypes=_ALL_DTYPES, hand=True,
+    name="lut_gather", run=_run_lut(lut_matmul), act_dtypes=_ALL_DTYPES,
+    kernel=lut_matmul, prior_per_mac=_per_mac_lut, weight_bytes=_bytes_keys,
+    describe="two-phase LUT CUDA kernel, shared-memory tables, gather fetch",
+    constraint=lambda m, k, n, d: True))
+
+register_kernel(KernelSpec(
+    name="dequant_packed", run=_run_dequant, act_dtypes=_ALL_DTYPES,
+    kernel=packed_matmul, prior_per_mac=_per_mac_dequant,
+    weight_bytes=_bytes_packed,
+    describe="base-3 packed dequant CUDA kernel (1.6 b/w, div/mod-3 decode, "
+             "f32 multiply-add)"))
+
+register_kernel(KernelSpec(
+    name="signflip", run=_run_signflip, act_dtypes=_ALL_DTYPES,
+    kernel=signflip_matmul, prior_per_mac=_per_mac_signflip,
+    weight_bytes=_bytes_trits,
+    describe="sign-flip baseline CUDA kernel: int8 trits select add, "
+             "subtract or skip (Fig. 1 middle)"))
+
+register_kernel(KernelSpec(
+    name="w2a8", run=_run_w2a8, act_dtypes=frozenset({"int8"}),
+    kernel=w2a8_matmul, prior_per_mac=_per_mac_dequant,
+    weight_bytes=_bytes_packed,
+    describe="W1.58A8 exact int8 x trit -> int32 CUDA kernel (dp4a); "
+             "requires pre-quantized int8 activations"))
+
+register_kernel(KernelSpec(
+    name="tl2", run=_run_tl2, act_dtypes=_ALL_DTYPES, kernel=tl2_matmul,
     prior_per_mac=_per_mac_tl2, weight_bytes=_bytes_tl2,
     describe="TL2 two-trit 9-entry LUT CUDA kernel (base-9 16-bit words, "
              "1.6 b/w)"))
+
+register_kernel(KernelSpec(
+    name="tl2_ref", run=_run_tl2_ref, act_dtypes=_ALL_DTYPES, kernel=None,
+    prior_per_mac=_per_mac_tl2, weight_bytes=_bytes_tl2_onehot_f32,
+    describe="plain PyTorch TL2 product: pair tables + one-hot fetch "
+             "contraction over base-9 words"))
 
 
 # ---------------------------------------------------------------------------
@@ -435,3 +557,113 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
         y = y * torch.as_tensor(s, dtype=torch.float32, device=y.device)
     out_dtype = torch.float32 if act == "int8" else x.dtype
     return y.reshape(*lead, n).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Autotuning
+# ---------------------------------------------------------------------------
+
+
+#: bytes zeroed before each timed call on the card: more than the H100's
+#: 50 MB L2, so each call reads its weights from HBM as a decode step does
+#: (one layer's weights are a few MB; a step streams all 30 layers')
+_FLUSH_BYTES = 64 << 20
+#: device cycles (about 20 ms) the card sleeps before a timed series, so the
+#: host has queued the whole series before the card reaches it and no host
+#: launch gap falls between a call's two events
+_QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def _time_us(fn: Callable[[], torch.Tensor], reps: int,
+             device: torch.device) -> float:
+    """Median time of ``fn()`` in µs over ``reps`` calls after one warm
+    call.  On the card each call is timed alone by CUDA events, with the L2
+    flushed before it and the series queued behind a device sleep, so the
+    time is the call's device time from a cold L2 without host gaps.  On
+    the CPU, the host clock around each call."""
+    fn()
+    times = []
+    if device.type == "cuda":
+        flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
+        for start, end in events:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize(device)
+        times = [start.elapsed_time(end) * 1e3 for start, end in events]
+    else:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(times))
+
+
+def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
+             kernels: list[str] | None = None, reps: int = 20, seed: int = 0,
+             backend: str | None = None, cache: AutotuneCache | None = None,
+             save: bool = True, mu: int = 3,
+             device: str | torch.device | None = None) -> dict[str, float]:
+    """Time every eligible kernel (or those named in ``kernels``) on an
+    ``[m,k]×[n,k]`` problem on ``device`` (default ``cuda``) and record the
+    times (µs) in the autotune cache under ``backend`` (default: the
+    device's type), so later ``policy="auto"`` dispatches of the same
+    ``(M, K, N, mu, act_dtype, backend)`` take the measured best.  Returns
+    ``{kernel_name: µs}``.
+
+    Inputs are made from ``seed`` as the reference makes them: int8 or
+    normal activations, a random base-3 packed weight.  Three deliberate
+    differences from the reference's ``autotune``:
+
+    * the clock starts after each kernel's weight encoding (trits, bytes,
+      keys or words) is derived: the port's serving path derives it once per
+      bound weight (:class:`TernaryWeight`), where the reference derives it
+      inside the jitted step and so times it too;
+    * a kernel that raises is not skipped with a warning: the error
+      propagates, so a hand kernel that fails to build or launch on the
+      card stops the run instead of dropping out of the measurements;
+    * on the card a time is the median of ``reps`` (default 20) single-call
+      device times, each from a cold L2 and without host launch gaps
+      (:func:`_time_us`), where the reference divides the wall time of 3
+      back-to-back calls by 3: close winners then flip less with the
+      host's noise.
+
+    Grouped (expert) problems come with the MoE kernels."""
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    dev = resolve_device(device)
+    backend = backend or dev.type
+    if backend != dev.type:
+        # a time taken here, recorded under another backend's key, would
+        # steer that backend's auto dispatch
+        raise ValueError(f"autotune measures on {dev.type!r}; cannot record "
+                         f"for backend={backend!r}")
+    cache = cache or get_autotune_cache()
+    rng = np.random.default_rng(seed)
+    if act_dtype == "int8":
+        x = torch.from_numpy(rng.integers(-127, 128, size=(m, k))).to(
+            torch.int8)
+    else:
+        x = torch.from_numpy(rng.normal(size=(m, k))).to(
+            getattr(torch, act_dtype))
+    trits = torch.from_numpy(rng.integers(-1, 2, size=(n, k))).to(torch.int8)
+    x = x.to(dev)
+    w = TernaryWeight.from_packed(encoding.pack_base3(trits.to(dev)), 1.0, k,
+                                  mu=mu)
+    names = kernels or [s.name for s in eligible_kernels(m, k, n, act_dtype)]
+    results: dict[str, float] = {}
+    for name in names:
+        spec = get_kernel(name)
+        if not spec.supports(m, k, n, act_dtype):
+            continue
+        results[name] = _time_us(lambda run=spec.run: run(x, w, mu), reps, dev)
+        cache.record(m, k, n, act_dtype, backend, name, results[name], mu=mu)
+    if save and results:
+        cache.save()
+    return results

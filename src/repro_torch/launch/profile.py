@@ -5,7 +5,8 @@ packed, every slot admitted), then runs ``--steps`` decode steps under
 ``torch.profiler`` with CPU and CUDA activities and prints one JSON line:
 wall time per step, device busy time per step (the summed device time of
 every kernel and copy on the card), the device's idle share, kernel launches
-per step, and the kernels that take the most device time.
+per step, the launches of each hand kernel per step, and the kernels that
+take the most device time.
 
 Usage (on the card):
   python -m repro_torch.launch.profile --arch bitnet-b1.58-2b --batch 4 \
@@ -24,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
 from repro_torch.models.decode import quantize_for_serving
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import DecodeEngine, Request
@@ -54,6 +56,7 @@ def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict
     for _ in range(2):
         state, _, _ = engine.sched_step(state)
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -69,6 +72,8 @@ def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "hand_kernel_launches_per_step": {
+            k: v / steps for k, v in launch_counts().items()},
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "ms_per_step": _self_device_us(e) / steps / 1e3}
                         for e in top],
@@ -95,6 +100,7 @@ def main(argv: list[str] | None = None) -> dict:
     engine = DecodeEngine(served, cfg, batch_size=args.batch, max_len=256,
                           matmul_policy=args.policy, device=device)
     out = {"arch": cfg.name, "batch": args.batch, "act_dtype": cfg.act_dtype,
+           "policy": args.policy or "auto",
            "gpu": torch.cuda.get_device_name(device),
            **profile_steps(engine, args.steps)}
     print(json.dumps(out), flush=True)

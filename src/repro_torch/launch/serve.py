@@ -6,13 +6,17 @@ Usage:
   python -m repro_torch.launch.serve --arch bitnet-b1.58-2b [--smoke] \
       [--batch 4] [--max-len 256] [--requests N] [--new-tokens 32] \
       [--prefill-chunk 32] [--act-dtype none|int8] [--policy auto] \
-      [--device cuda|cpu] [--seed 0]
+      [--autotune] [--device cuda|cpu] [--seed 0]
 
 Weights are random (there is no checkpoint in the repository).  Every
 ternary projection goes through ``kernels.dispatch.ternary_matmul``; on the
 card the prior routes them to the hand-written CUDA kernels (``lut_gather``
-at M >= 3, ``tl2`` at M <= 2 and for int8 activations).  The launcher prints
-how many times each kernel launched.
+at M >= 3, ``tl2`` at M <= 2 and for int8 activations).  ``--autotune``
+first times every eligible kernel at the engine's shapes
+(``DecodeEngine.autotune_shapes``, recorded in the cache at
+``$REPRO_TORCH_AUTOTUNE_CACHE``) so ``auto`` dispatches on the
+measurements; ``--policy fixed:<kernel>`` pins one kernel.  The launcher
+prints how many times each hand kernel launched.
 """
 
 from __future__ import annotations
@@ -24,8 +28,7 @@ import torch
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lut_matmul import lut_matmul
-from repro_torch.kernels.tl2_matmul import tl2_matmul
+from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
 from repro_torch.models.decode import (packed_bits_per_weight,
                                        quantize_for_serving)
 from repro_torch.models.model import init_params
@@ -52,6 +55,9 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap.add_argument("--policy", default=None,
                     help="ternary-matmul policy: auto | prior | "
                     "fixed:<kernel> (default: auto)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time every eligible kernel at the engine's shapes "
+                    "before serving, so 'auto' dispatches on measurements")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     ap.add_argument("--seed", type=int, default=0,
@@ -69,11 +75,16 @@ def main(argv: list[str] | None = None) -> list[Request]:
     engine = DecodeEngine(served, cfg, batch_size=args.batch,
                           max_len=args.max_len, matmul_policy=args.policy,
                           prefill_chunk=args.prefill_chunk, device=device)
+    if args.autotune:
+        for shape, us in engine.autotune_shapes().items():
+            print(f"[autotune] M{shape[0]} K{shape[1]} N{shape[2]}: "
+                  + ", ".join(f"{k} {t:.1f}us" for k, t in sorted(
+                      us.items(), key=lambda kv: kv[1])))
     n_req = args.requests if args.requests is not None else args.batch
     reqs = [Request(prompt=[7 + i, 13 + i], max_new_tokens=args.new_tokens)
             for i in range(n_req)]
 
-    lut_matmul.launches = tl2_matmul.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     sched = ContinuousScheduler(engine)
     for r in reqs:
@@ -83,9 +94,9 @@ def main(argv: list[str] | None = None) -> list[Request]:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n = sum(len(r.out) for r in reqs)
+    launches = ", ".join(f"{k} {v}" for k, v in launch_counts().items())
     print(f"[serve] {n} tokens / {sched.stats.decode_steps} decode steps in "
-          f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: lut_gather "
-          f"{lut_matmul.launches}, tl2 {tl2_matmul.launches}")
+          f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: {launches}")
     for i, r in enumerate(reqs):
         print(f"  [{i}] {r.out}")
     return reqs

@@ -113,6 +113,52 @@ def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
     return dict(p, blocks=[bind(b, ()) for b in layer_blocks(p)])
 
 
+def layer_matmul_problems(cfg: ModelConfig, batch_size: int,
+                          seq_len: int = 1
+                          ) -> list[tuple[str, int, int, int]]:
+    """Role-tagged dense matmul problems ``(role, M, K, N)`` one forward
+    step issues through ``dispatch.ternary_matmul``, ``M = batch_size ·
+    seq_len``.  ``role`` is the projection's parameter-leaf name; roles that
+    dispatch identically (``wk``/``wv``, ``wi``/``wg``) are listed once.
+
+    The port's copy covers the attention projections and the ``d_ff`` /
+    ``dense_ff`` feed-forwards; the mamba2/zamba2 and xlstm projections come
+    with those families, and asking for them raises."""
+    if cfg.block_pattern not in ("attn",):
+        raise NotImplementedError(
+            f"layer_matmul_problems: the {cfg.block_pattern!r} block pattern "
+            f"is not ported yet")
+    M = batch_size * seq_len
+    d = cfg.d_model
+    probs: set[tuple[str, int, int, int]] = set()
+
+    def proj(role, k, n):
+        if k and n:
+            probs.add((role, M, int(k), int(n)))
+
+    proj("wq", d, cfg.q_dim)
+    proj("wk", d, cfg.kv_dim)
+    proj("wo", cfg.q_dim, d)
+    if cfg.d_ff:
+        proj("wi", d, cfg.d_ff)          # wi / wg
+        proj("wo", cfg.d_ff, d)
+    if cfg.dense_ff:
+        proj("wi", d, cfg.dense_ff)
+        proj("wo", cfg.dense_ff, d)
+    return sorted(probs)
+
+
+def layer_matmul_shapes(cfg: ModelConfig, batch_size: int,
+                        seq_len: int = 1) -> list[tuple[int, int, int]]:
+    """The distinct ternary-matmul problems ``(M, K, N)`` of one forward
+    step (:func:`layer_matmul_problems` without the roles): the shape
+    universe that :func:`repro_torch.kernels.dispatch.autotune` measures so
+    serving dispatches on measurements instead of the prior."""
+    return sorted({(m, k, n)
+                   for _, m, k, n in layer_matmul_problems(cfg, batch_size,
+                                                           seq_len)})
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------

@@ -9,6 +9,10 @@ length-bucketed admission into a private single-row cache spliced into the
 live batch on the last chunk, and a fused sample → mask → decode step with
 stop and budget masking on the device.
 
+:meth:`DecodeEngine.autotune_shapes` measures every eligible kernel at the
+engine's decode and admission-chunk shapes, so ``policy="auto"`` serving
+dispatches on the card's own times.
+
 Prefix caching, speculative decoding, mesh sharding and the generational
 ``run()`` path are not ported yet; the constructor rejects their arguments.
 """
@@ -23,9 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.dispatch import autotune, get_autotune_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        decode_step, init_cache,
+                                       layer_matmul_problems,
                                        prefill_chunks_of,
                                        supports_chunked_prefill)
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
@@ -124,6 +130,38 @@ class DecodeEngine:
         self.params = bind_serving_weights(params, cfg)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.sampler.seed)
+
+    # ------------------------------------------------------------------
+    # kernel autotuning over the engine's shapes
+    # ------------------------------------------------------------------
+
+    def matmul_shape_universe(self) -> list[tuple[int, int, int]]:
+        """Every dense ternary-matmul problem ``(M, K, N)`` this engine's
+        serving path dispatches: decode at the batch (``M = B``) and the
+        admission chunk (``M = chunk``; requests are prefilled one at a
+        time, chunk by chunk).  The speculative shapes (verify, draft decode,
+        draft chunk) come with speculative decoding."""
+        return sorted({(m, k, n)
+                       for bs, sl in ((self.B, 1), (1, self.prefill_chunk))
+                       for _, m, k, n in layer_matmul_problems(self.cfg, bs,
+                                                               sl)})
+
+    def autotune_shapes(self, **autotune_kw) -> dict:
+        """Measure every eligible kernel at each of this engine's shapes
+        (:func:`repro_torch.kernels.dispatch.autotune`, on the engine's
+        device) and record the times in the process's autotune cache, so
+        ``policy="auto"`` serving dispatches on measurements instead of the
+        prior; one cache write at the end.  The act dtype is the one
+        dispatch keys on: ``int8`` under ``act_dtype="int8"``, else the
+        config's dtype.  Returns ``{(M, K, N): {kernel: µs}}``."""
+        cache = get_autotune_cache()
+        act = "int8" if self.cfg.act_dtype == "int8" else self.cfg.dtype
+        results = {(m, k, n): autotune(m, k, n, act, mu=self.cfg.mu,
+                                       cache=cache, save=False,
+                                       device=self.device, **autotune_kw)
+                   for m, k, n in self.matmul_shape_universe()}
+        cache.save()
+        return results
 
     def run(self, requests: list[Request]) -> list[Request]:
         """Generational batching is not ported yet; use :meth:`serve`."""

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.
+the card: lut_gather, lut_onehot, tl2, dequant_packed, w2a8, signflip.
 
 These tests need a CUDA card and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); elsewhere they skip.  The
@@ -11,7 +11,8 @@ PyTorch is installed:
 Tolerance for float inputs: kernel and plain version both accumulate in f32,
 in different orders, so they agree to a few f32 ulps of the row's absolute
 sum (atol = 1e-5 · max_b Σ_k |x[b, k]|).  int8 inputs make every partial
-sum an integer below 2^24, so those results are exact.
+sum an integer below 2^24, so those results are exact; ``w2a8`` sums in
+int32 and must equal the int64 product.
 """
 
 import numpy as np
@@ -19,8 +20,12 @@ import pytest
 import torch
 
 from repro_torch.core import encoding as tenc
+from repro_torch.kernels import dequant_matmul as tdeq
+from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import lut_matmul as tlut
+from repro_torch.kernels import signflip_matmul as tsf
 from repro_torch.kernels import tl2_matmul as ttl2
+from repro_torch.kernels import w2a8_matmul as tw2a8
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +116,103 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ttl2.tl2_matmul(x, torch.zeros((4, 3), dtype=torch.int32, device=cuda), 30)
     with pytest.raises(ValueError):
         tlut.lut_matmul(x, torch.zeros((4, 10), dtype=torch.uint8), 3)
+
+
+def _served_packed(wt: torch.Tensor) -> torch.Tensor:
+    """Base-3 bytes with the serving artifact's 128-byte row padding (byte
+    0, five -1 trits each, past the logical K)."""
+    packed = tenc.pack_base3(wt)
+    return torch.nn.functional.pad(packed, (0, (-packed.shape[1]) % 128))
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_lut_onehot_kernel_matches_plain(cuda, B, O, K):
+    x, w = _case(9, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    keys = tenc.encode_weight_matrix(wt, 3)
+    xp = torch.nn.functional.pad(xt.to(torch.bfloat16), (0, keys.shape[1] * 3 - K))
+    n0, g0 = tlut.lut_onehot_matmul.launches, tlut.lut_matmul.launches
+    got = tlut.lut_onehot_matmul(xp, keys, 3)
+    assert tlut.lut_onehot_matmul.launches == n0 + 1
+    assert tlut.lut_matmul.launches == g0
+    want = tlut.lut_onehot_matmul_torch(xp, keys, 3)
+    torch.cuda.synchronize()
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("mu", [2, 4])
+def test_lut_onehot_kernel_refuses_other_group_sizes(cuda, mu):
+    x, w = _case(10, 5, 200, 97)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    keys = tenc.encode_weight_matrix(wt, mu)
+    xp = torch.nn.functional.pad(xt, (0, keys.shape[1] * mu - 97))
+    n0 = tlut.lut_onehot_matmul.launches
+    with pytest.raises(ValueError, match="mu=3"):
+        tlut.lut_onehot_matmul(xp, keys, mu)
+    assert tlut.lut_onehot_matmul.launches == n0
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_dequant_kernel_matches_plain(cuda, B, O, K):
+    x, w = _case(11, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    packed = _served_packed(wt)
+    xb = xt.to(torch.bfloat16)
+    n0 = tdeq.packed_matmul.launches
+    got = tdeq.packed_matmul(xb, packed, K)
+    assert tdeq.packed_matmul.launches == n0 + 1
+    want = tdeq.packed_matmul_torch(xb, packed, K)
+    torch.cuda.synchronize()
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_w2a8_kernel_exact(cuda, B, O, K):
+    x, w = _case(12, B, O, K, int8=True)
+    want = torch.from_numpy(x.astype(np.int64) @ w.T.astype(np.int64))
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    packed = _served_packed(wt)
+    n0 = tw2a8.w2a8_matmul.launches
+    got = tw2a8.w2a8_matmul(xt, packed, K)
+    assert tw2a8.w2a8_matmul.launches == n0 + 1
+    assert got.shape == (B, O) and got.dtype == torch.int32
+    assert torch.equal(got.cpu().to(torch.int64), want)
+    assert torch.equal(got, tw2a8.w2a8_matmul_torch(xt, packed, K))
+
+
+def test_w2a8_kernel_refuses_float_activations(cuda):
+    packed = torch.zeros((4, 10), dtype=torch.uint8, device=cuda)
+    n0 = tw2a8.w2a8_matmul.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="int8"):
+            tw2a8.w2a8_matmul(torch.zeros((2, 50), dtype=dtype, device=cuda),
+                              packed, 50)
+    assert tw2a8.w2a8_matmul.launches == n0
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_signflip_kernel_matches_plain(cuda, B, O, K):
+    x, w = _case(13, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    xb = xt.to(torch.bfloat16)
+    n0 = tsf.signflip_matmul.launches
+    got = tsf.signflip_matmul(xb, wt)
+    assert tsf.signflip_matmul.launches == n0 + 1
+    want = tsf.signflip_matmul_torch(xb, wt)
+    torch.cuda.synchronize()
+    assert got.shape == (B, O) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("act", ["bfloat16", "int8"])
+def test_autotune_on_the_card_times_every_eligible_kernel(cuda, act, tmp_path):
+    cache = tdispatch.AutotuneCache(path=str(tmp_path / "at.json"))
+    us = tdispatch.autotune(4, 640, 2560, act, cache=cache, device=cuda)
+    want = {s.name for s in tdispatch.eligible_kernels(4, 640, 2560, act)}
+    assert set(us) == want and all(t > 0 for t in us.values())
+    assert ("w2a8" in us) == (act == "int8")
+    best = min(us, key=us.get)
+    assert tdispatch.select_kernel(4, 640, 2560, act, device="cuda",
+                                   cache=cache).name == best

@@ -1,6 +1,6 @@
 """The port's serving-side model paths against the JAX package: chunked
 prefill and decode under teacher forcing, the KV ring invariant, chunked
-vs whole-prompt prefill, and dead rows.
+vs whole-prompt prefill, dead rows, and the matmul shapes one step issues.
 
 Both packages run the same packed serving artifact (the JAX
 ``quantize_for_serving`` tree, converted) at a reduced bitnet-b1.58-2b
@@ -22,13 +22,19 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro.configs.registry import ARCHS as J_ARCHS
+from repro.configs.registry import get_config as j_config
 from repro.configs.registry import get_smoke_config as j_smoke
 from repro.models import decode as jdecode
 from repro.models import model as jmodel
+from repro_torch.configs.registry import get_config as t_config
 from repro_torch.configs.registry import get_smoke_config as t_smoke
 from repro_torch.convert import from_numpy_tree
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.models import decode as tdecode
+from repro_torch.models.config import ModelConfig
 
 ARCH = "bitnet-b1.58-2b"
 TOL_JAX = 2.0 ** -4
@@ -99,7 +105,9 @@ def _teacher_forced(js, ts, jcfg, tcfg, prompt, forced, C, s_max):
     return np.stack(jl), np.stack(tl), jc, tc
 
 
-@pytest.mark.parametrize("policy", ["auto", "fixed:lut_gather", "fixed:tl2"])
+@pytest.mark.parametrize("policy", [
+    "auto", "fixed:lut_gather", "fixed:tl2", "fixed:lut_onehot",
+    "fixed:dequant_packed", "fixed:signflip"])
 def test_chunked_prefill_and_decode_logits_match_jax(served, policy):
     js, ts = served
     jcfg, tcfg = j_smoke(ARCH), t_smoke(ARCH).with_(matmul_policy=policy)
@@ -177,3 +185,40 @@ def test_dead_row_writes_nothing(served):
     _, cache = tdecode.decode_step(tp, tcfg, cache, torch.tensor([3, 4]),
                                    torch.tensor([16, 16], dtype=torch.int32))
     assert (cache["pos"] < 16).all()
+
+
+@pytest.mark.parametrize("batch,seq_len", [(1, 1), (4, 1), (1, 32), (3, 7)])
+def test_layer_matmul_shapes_match_jax_at_full_size(batch, seq_len):
+    """Pure shape arithmetic, so full-size bitnet-b1.58-2b costs nothing."""
+    jcfg, tcfg = j_config(ARCH), t_config(ARCH)
+    assert tdecode.layer_matmul_problems(tcfg, batch, seq_len) == \
+        jdecode.layer_matmul_problems(jcfg, batch, seq_len)
+    assert tdecode.layer_matmul_shapes(tcfg, batch, seq_len) == \
+        jdecode.layer_matmul_shapes(jcfg, batch, seq_len)
+
+
+#: the reference's archs built from attention blocks (dense, MoE's dense
+#: projections, the vision and encoder-decoder stubs)
+ATTN_ARCHS = sorted(n for n, c in J_ARCHS.items() if c.block_pattern == "attn")
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_layer_matmul_shapes_match_jax_for_reduced_attention_archs(arch):
+    """The port's copy of the shape arithmetic on each attention arch's
+    reduced config (built field for field from the reference's)."""
+    jcfg = j_smoke(arch)
+    tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(jcfg)})
+    for batch, seq_len in ((2, 1), (1, 8)):
+        assert tdecode.layer_matmul_shapes(tcfg, batch, seq_len) == \
+            jdecode.layer_matmul_shapes(jcfg, batch, seq_len)
+
+
+@pytest.mark.parametrize("arch", sorted(n for n, c in J_ARCHS.items()
+                                        if c.block_pattern != "attn"))
+def test_layer_matmul_shapes_refuse_families_not_ported(arch):
+    jcfg = j_smoke(arch)
+    tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(jcfg)})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tdecode.layer_matmul_shapes(tcfg, 2)

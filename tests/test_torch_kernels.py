@@ -4,7 +4,9 @@ On the CPU the plain PyTorch versions are held against the Pallas kernels
 (interpret mode) on ragged shapes; the CUDA kernels themselves are held
 against the plain versions by ``tests/test_torch_cuda.py``, which runs only
 where there is a card (``python3 chip_smoke.py`` does the same at the
-model's shapes).
+model's shapes).  ``w2a8`` is held against the int64 numpy product instead
+of its Pallas kernel, which does not compile in interpret mode for some
+padded shapes on this JAX version.
 
 Tolerance for float inputs: both sides accumulate in f32 in different
 orders, so results agree to a few f32 ulps of the row's absolute sum
@@ -12,20 +14,30 @@ orders, so results agree to a few f32 ulps of the row's absolute sum
 integer below 2^24, so those results are exact.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import encoding as jenc
+from repro.core import quantization as jquant
 from repro.kernels import dispatch as jdispatch
+from repro.kernels import ops as jops
+from repro.kernels.dequant_matmul import packed_matmul as j_packed_matmul
 from repro.kernels.lut_matmul import lut_matmul as j_lut_matmul
+from repro.kernels.signflip_matmul import signflip_matmul as j_signflip_matmul
 from repro.kernels.tl2_matmul import pack_tl2 as j_pack_tl2
 from repro.kernels.tl2_matmul import tl2_matmul as j_tl2_matmul
 from repro_torch.core import encoding as tenc
+from repro_torch.kernels import dequant_matmul as tdeq
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels import lut_matmul as tlut
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import signflip_matmul as tsf
 from repro_torch.kernels import tl2_matmul as ttl2
+from repro_torch.kernels import w2a8_matmul as tw2a8
 
 
 @pytest.fixture(autouse=True)
@@ -101,16 +113,23 @@ def test_prior_on_cuda_matches_jax_prior_on_tpu(m, act):
         got = tdispatch.select_kernel(m, k, n, act, policy="prior",
                                       device="cuda").name
         assert got == want, (m, k, n, act)
-    # off the card the hand kernels lose to the plain ref, as in the reference
-    assert tdispatch.select_kernel(m, 2560, 2560, act, policy="prior",
-                                   device="cpu").name == "ref"
+    # off the card the hand kernels lose to the plain entries (ref, or
+    # tl2_ref at large M), as the reference's prior off its accelerator
+    off = tdispatch.select_kernel(m, 2560, 2560, act, policy="prior",
+                                  device="cpu")
+    assert not off.hand
+    assert off.name == jdispatch.select_kernel(m, 2560, 2560, act,
+                                               policy="prior",
+                                               backend="cpu").name
 
 
 def test_fixed_unported_kernel_raises_keyerror_listing_kernels():
-    with pytest.raises(KeyError, match="lut_gather.*ref.*tl2"):
+    listed = ("dequant_packed.*lut_gather.*lut_onehot.*ref.*signflip.*tl2.*"
+              "tl2_ref.*w2a8")
+    with pytest.raises(KeyError, match=listed):
         tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:bogus")
     with pytest.raises(KeyError, match="registered"):
-        tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:dequant_packed")
+        tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:grouped_dequant")
 
 
 def test_autotune_cache_roundtrip_steers_auto(tmp_path):
@@ -153,7 +172,9 @@ def test_ternary_weight_derives_encodings_once():
     assert np.array_equal(ttl2.unpack_tl2(tw.tl2(), 47).numpy(), w)
 
 
-@pytest.mark.parametrize("policy", ["fixed:ref", "fixed:lut_gather", "fixed:tl2"])
+@pytest.mark.parametrize("policy", [
+    "fixed:ref", "fixed:lut_gather", "fixed:tl2", "fixed:lut_onehot",
+    "fixed:dequant_packed", "fixed:signflip", "fixed:tl2_ref"])
 def test_ternary_matmul_scales_and_casts(policy):
     x, w = _case(4, 5, 20, 33)
     tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w), 0.5)
@@ -187,3 +208,175 @@ def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("tl2_matmul")
     assert not (tmp_path / "build").exists()
+
+
+def _served_packed(w: np.ndarray) -> np.ndarray:
+    """Base-3 bytes with the serving artifact's 128-byte row padding (byte
+    0, five -1 trits each, past the logical K)."""
+    packed = np.asarray(jenc.pack_base3(jnp.asarray(w)))
+    return np.pad(packed, ((0, 0), (0, (-packed.shape[1]) % 128)))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_plain_lut_onehot_matches_pallas_onehot(B, O, K):
+    x, w = _case(20, B, O, K)
+    keys = np.array(jenc.encode_weight_matrix(jnp.asarray(w), 3))
+    xp = np.pad(x, ((0, 0), (0, keys.shape[1] * 3 - K)))
+    want = np.asarray(j_lut_matmul(jnp.asarray(xp), jnp.asarray(keys), 3,
+                                   fetch="onehot", interpret=True))
+    got = tlut.lut_onehot_matmul(torch.from_numpy(xp), torch.from_numpy(keys), 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
+    # the two fetches give the same sums: every other one-hot product is 0
+    gathered = tlut.lut_matmul(torch.from_numpy(xp), torch.from_numpy(keys), 3)
+    np.testing.assert_allclose(got.numpy(), gathered.numpy(), rtol=0,
+                               atol=_atol(x))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_plain_packed_matches_pallas(B, O, K):
+    x, w = _case(21, B, O, K)
+    packed = _served_packed(w)
+    want = np.asarray(j_packed_matmul(jnp.asarray(x), jnp.asarray(packed), K,
+                                      interpret=True))
+    got = tdeq.packed_matmul(torch.from_numpy(x), torch.from_numpy(packed), K)
+    assert got.dtype == torch.float32 and got.shape == (B, O)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
+    np.testing.assert_allclose(got.numpy(), x.astype(np.float64) @ w.T,
+                               rtol=0, atol=_atol(x))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_plain_signflip_matches_pallas(B, O, K):
+    x, w = _case(22, B, O, K)
+    want = np.asarray(j_signflip_matmul(jnp.asarray(x), jnp.asarray(w),
+                                        interpret=True))
+    got = tsf.signflip_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (B, O)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED + [(4, 64, 2560), (2, 16, 6912)])
+def test_plain_w2a8_exact_against_int64_product(B, O, K):
+    x, w = _case(23, B, O, K, int8=True)
+    got = tw2a8.w2a8_matmul(torch.from_numpy(x),
+                            torch.from_numpy(_served_packed(w)), K)
+    assert got.dtype == torch.int32 and got.shape == (B, O)
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          x.astype(np.int64) @ w.T.astype(np.int64))
+
+
+def test_w2a8_refuses_float_activations():
+    x, w = _case(24, 2, 8, 30)
+    packed = torch.from_numpy(_served_packed(w))
+    with pytest.raises(ValueError, match="int8"):
+        tw2a8.w2a8_matmul(torch.from_numpy(x), packed, 30)
+    with pytest.raises(ValueError, match="does not support act_dtype=bfloat16"):
+        tdispatch.select_kernel(2, 30, 8, "bfloat16", policy="fixed:w2a8")
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_w2a8_linear_matches_jax_quantize_and_int64_product(B, O, K):
+    x, w = _case(25, B, O, K)
+    x[0] = 0.0                                   # an all-zero token row
+    packed = _served_packed(w)
+    w_scale = np.float32(0.37)
+    xq, xs = jquant.quantize_activations_int8(jnp.asarray(x))
+    prod = np.asarray(xq).astype(np.int64) @ w.T.astype(np.int64)
+    want = (prod.astype(np.float32) * np.asarray(xs)) * w_scale
+    got = tw2a8.w2a8_linear(torch.from_numpy(x), torch.from_numpy(packed),
+                            w_scale, K)
+    assert got.dtype == torch.float32 and got.shape == (B, O)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,O,K", RAGGED)
+def test_ops_linears_and_encoders_match_jax(B, O, K):
+    """bf16 master weights, as the models hold them: the absmean scale is
+    then the same bf16 value on both sides, and so are keys and bytes."""
+    rng = np.random.default_rng(26)
+    master = rng.normal(size=(O, K)).astype(np.float32)
+    jmaster = jnp.asarray(master, jnp.bfloat16)
+    tmaster = torch.from_numpy(master).to(torch.bfloat16)
+    x = rng.normal(size=(2, B, K)).astype(np.float32)
+    jkeys, jscale = jops.encode_for_lut(jmaster, 3)
+    tkeys, tscale = tops.encode_for_lut(tmaster, 3)
+    assert np.array_equal(tkeys.numpy(), np.asarray(jkeys))
+    assert float(tscale) == float(jscale)
+    jpacked, _ = jops.encode_packed(jmaster)
+    tpacked, _ = tops.encode_packed(tmaster)
+    assert np.array_equal(tpacked.numpy(), np.asarray(jpacked))
+    w_t = np.asarray(jquant.ternarize(jmaster)[0])
+    xp = np.pad(x, ((0, 0), (0, 0), (0, jkeys.shape[1] * 3 - K)))
+    atol = _atol(x.reshape(-1, K)) * float(jscale)
+    pairs = [
+        (jops.ternary_linear_lut(jnp.asarray(xp), jkeys, jscale, 3),
+         tops.ternary_linear_lut(torch.from_numpy(xp), tkeys, tscale, 3)),
+        (jops.ternary_linear_lut(jnp.asarray(xp), jkeys, jscale, 3,
+                                 fetch="gather"),
+         tops.ternary_linear_lut(torch.from_numpy(xp), tkeys, tscale, 3,
+                                 fetch="gather")),
+        (jops.ternary_linear_signflip(jnp.asarray(x), jnp.asarray(w_t), jscale),
+         tops.ternary_linear_signflip(torch.from_numpy(x),
+                                      torch.from_numpy(w_t), tscale)),
+        (jops.ternary_linear_packed(jnp.asarray(x), jpacked, jscale, K),
+         tops.ternary_linear_packed(torch.from_numpy(x), tpacked, tscale, K)),
+    ]
+    for want, got in pairs:
+        assert got.dtype == torch.float32 and got.shape == (2, B, O)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=atol)
+
+
+def test_registry_is_the_jax_dense_registry():
+    dense = [s.name for s in jdispatch.REGISTRY.values() if not s.grouped]
+    assert list(tdispatch.REGISTRY) == dense
+    for name, spec in tdispatch.REGISTRY.items():
+        assert spec.act_dtypes == jdispatch.REGISTRY[name].act_dtypes, name
+        assert spec.hand == jdispatch.REGISTRY[name].pallas, name
+
+
+def test_ternary_weight_packs_trits_once():
+    _, w = _case(27, 1, 24, 47)
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w))
+    assert tw.packed() is tw.packed()
+    assert np.array_equal(tw.packed().numpy(),
+                          np.asarray(jenc.pack_base3(jnp.asarray(w))))
+    packed = tenc.pack_base3(torch.from_numpy(w))
+    assert tdispatch.TernaryWeight.from_packed(packed, 1.0, 47).packed() is packed
+
+
+@pytest.mark.parametrize("act", ["float32", "int8"])
+def test_autotune_measures_every_eligible_kernel_and_auto_uses_it(act, tmp_path):
+    timings = tdispatch.autotune(2, 20, 9, act, reps=1, device="cpu")
+    want = {s.name for s in tdispatch.eligible_kernels(2, 20, 9, act)}
+    assert set(timings) == want and ("w2a8" in want) == (act == "int8")
+    assert all(t > 0 for t in timings.values())
+    path = tmp_path / "at.json"
+    assert path.exists()
+    best = min(timings, key=timings.get)
+    assert tdispatch.select_kernel(2, 20, 9, act, device="cpu").name == best
+    # the entry survives a cold reload, keyed on the CPU backend
+    tdispatch.reset_autotune_cache()
+    assert tdispatch.select_kernel(2, 20, 9, act, device="cpu").name == best
+    # a time taken on the CPU never steers dispatch on the card
+    assert tdispatch.select_kernel(2, 20, 9, act, device="cuda") is \
+        tdispatch.select_kernel(2, 20, 9, act, device="cuda", policy="prior")
+
+
+def test_autotune_propagates_a_kernel_failure(monkeypatch):
+    def boom(x2, w, mu):
+        raise RuntimeError("kernel launch failed")
+
+    spec = tdispatch.REGISTRY["dequant_packed"]
+    monkeypatch.setitem(tdispatch.REGISTRY, "dequant_packed",
+                        dataclasses.replace(spec, run=boom))
+    cache = tdispatch.AutotuneCache(path="unused.json")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tdispatch.autotune(2, 20, 9, "float32", reps=1, device="cpu",
+                           cache=cache, save=False)
+
+
+def test_autotune_refuses_to_record_for_another_backend():
+    with pytest.raises(ValueError, match="cannot record"):
+        tdispatch.autotune(2, 20, 9, "float32", reps=1, device="cpu",
+                           backend="cuda", save=False)

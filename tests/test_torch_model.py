@@ -154,14 +154,18 @@ def test_serving_forward_logits_match_jax(trees):
                                              size=(2, 9)).astype(np.int32)
     jh, _ = jmodel.forward(js, jcfg, {"tokens": jnp.asarray(toks)})
     jl = np.asarray((jh @ jmodel.lm_head_w(js, jcfg)).astype(jnp.float32))
-    for policy in ("fixed:ref", "fixed:lut_gather", "fixed:tl2"):
+    for policy in ("fixed:ref", "fixed:lut_gather", "fixed:tl2",
+                   "fixed:lut_onehot", "fixed:dequant_packed",
+                   "fixed:signflip", "fixed:tl2_ref"):
         c = tcfg.with_(matmul_policy=policy)
         th, _ = tmodel.forward(ts, c, {"tokens": torch.from_numpy(toks).long()})
         tl = (th @ tmodel.lm_head_w(ts, c)).float().numpy()
         assert np.abs(tl - jl).max() <= 2.0 ** -4, policy
 
 
-@pytest.mark.parametrize("policy", [None, "fixed:tl2", "fixed:lut_gather"])
+@pytest.mark.parametrize("policy", [
+    None, "fixed:tl2", "fixed:lut_gather", "fixed:w2a8", "fixed:lut_onehot",
+    "fixed:dequant_packed", "fixed:signflip"])
 def test_linear_int8_branch_matches_jax(policy):
     """W1.58A8: per-token int8 codes are identical, the ternary product of
     int8 codes is exact on both sides, and the two rank-1 rescales round to

@@ -1,12 +1,15 @@
 """The port's serving engine against the JAX package's, and the port's
 independence from JAX.
 
-The port's ``DecodeEngine`` under its ``ContinuousScheduler`` (policies
-``auto``, ``fixed:lut_gather`` and ``fixed:tl2``, whose kernels run their
-plain PyTorch versions on the CPU) serves the same requests as the JAX
-engine on the same packed parameters under its CPU default (``ref``), both
-with canonical greedy selection (argmax over bf16-rounded logits), at a
-reduced bitnet-b1.58-2b (4 layers, d_model 128).
+The port's ``DecodeEngine`` under its ``ContinuousScheduler`` serves the
+same requests as the JAX engine on the same packed parameters under its CPU
+default (``ref``), both with canonical greedy selection (argmax over
+bf16-rounded logits), at a reduced bitnet-b1.58-2b (4 layers, d_model 128):
+under the prior (``auto`` on an empty autotune cache), autotuned
+(``autotune_shapes`` first, then ``auto`` on the measurements) and pinned to
+each hand kernel (``fixed:<kernel>``), whose kernels run their plain
+PyTorch versions on the CPU; with bf16 activations and with int8
+activations (``act_dtype="int8"``, the W1.58A8 path, where ``w2a8`` joins).
 
 Tolerance: per-step logits, teacher-forced on the JAX stream, agree to
 max abs diff 2^-4 (the trits are exact on both sides; XLA keeps f32 between
@@ -14,7 +17,12 @@ fused elementwise ops where the port rounds each op to bf16, which moves
 logits of magnitude < 4 by a few bf16 ulps).  The token streams must then
 agree step for step, except at a step where the JAX logits' top-2 margin is
 below that tolerance: there the two may pick differently, and the streams
-are compared no further.
+are compared no further.  With int8 activations an activation that the two
+trunks round one bf16 ulp apart can quantize to neighbouring int8 codes, a
+step of absmax/127 in that input, so the logits move further: max abs diff
+2^-3 (0.070 measured at this config).  Among the port's own kernels every
+int8 product is an exact integer sum, so their logits are bitwise equal to
+the port's ``fixed:ref``.
 """
 
 import os
@@ -42,6 +50,7 @@ from repro_torch.serving.scheduler import ContinuousScheduler
 
 ARCH = "bitnet-b1.58-2b"
 TOL = 2.0 ** -4
+TOL_INT8 = 2.0 ** -3
 REPO = Path(__file__).resolve().parents[1]
 PROMPT_LENS = [3, 11, 17, 6]
 NEW_TOKENS = 6
@@ -116,11 +125,8 @@ def _top2_margin(logits: np.ndarray) -> np.ndarray:
     return top[:, 1] - top[:, 0]
 
 
-@pytest.fixture(scope="module")
-def jax_served():
-    jcfg = j_smoke(ARCH)
-    js = jdecode.quantize_for_serving(
-        jmodel.init_params(jcfg, jax.random.PRNGKey(2)), jcfg)
+def _jax_serve(js, jcfg):
+    """The JAX engine's streams and teacher-forced logits on ``js``."""
     eng = jengine.DecodeEngine(
         js, jcfg, batch_size=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
         sampler=jengine.SamplerConfig(canonical_greedy=True))
@@ -133,15 +139,41 @@ def jax_served():
     return js, streams, forced
 
 
-@pytest.mark.parametrize("policy", ["auto", "fixed:lut_gather", "fixed:tl2"])
-def test_port_engine_matches_jax_engine(jax_served, policy):
-    js, jstreams, jforced = jax_served
-    tcfg = t_smoke(ARCH)
+@pytest.fixture(scope="module")
+def jax_params():
+    jcfg = j_smoke(ARCH)
+    return jdecode.quantize_for_serving(
+        jmodel.init_params(jcfg, jax.random.PRNGKey(2)), jcfg)
+
+
+@pytest.fixture(scope="module")
+def jax_served(jax_params):
+    return _jax_serve(jax_params, j_smoke(ARCH))
+
+
+@pytest.fixture(scope="module")
+def jax_served_int8(jax_params):
+    return _jax_serve(jax_params, j_smoke(ARCH).with_(act_dtype="int8"))
+
+
+def _port_engine(js, tcfg, policy, batch_size=2, prefill_chunk=CHUNK):
+    """The port's engine on the JAX tree; ``policy="autotuned"`` measures
+    every eligible kernel at the engine's shapes first, then serves under
+    ``auto``."""
     ts = from_numpy_tree(jax.tree.map(np.asarray, js), "cpu")
     eng = tengine.DecodeEngine(
-        ts, tcfg, batch_size=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
-        matmul_policy=policy, device="cpu",
-        sampler=tengine.SamplerConfig(canonical_greedy=True))
+        ts, tcfg, batch_size=batch_size, max_len=MAX_LEN,
+        prefill_chunk=prefill_chunk,
+        matmul_policy="auto" if policy == "autotuned" else policy,
+        device="cpu", sampler=tengine.SamplerConfig(canonical_greedy=True))
+    if policy == "autotuned":
+        eng.autotune_shapes(reps=1)
+        assert tdispatch.get_autotune_cache().entries
+    return eng
+
+
+def _assert_streams_match(eng, jax_served_result, tol=TOL):
+    js, jstreams, jforced = jax_served_result
     reqs = [tengine.Request(prompt=p, max_new_tokens=NEW_TOKENS)
             for p in _prompts()]
     sched = ContinuousScheduler(eng)
@@ -151,12 +183,59 @@ def test_port_engine_matches_jax_engine(jax_served, policy):
     assert all(r.done and len(r.out) == NEW_TOKENS for r in reqs)
     for prompt, r, js_out, jl in zip(_prompts(), reqs, jstreams, jforced):
         tl = _port_forced(eng.params, eng.cfg, prompt, js_out)
-        assert np.abs(tl - jl).max() <= TOL
+        assert np.abs(tl - jl).max() <= tol
         margin = _top2_margin(jl)
         for t, (a, b) in enumerate(zip(r.out, js_out)):
             if a != b:
-                assert margin[t] < TOL, (t, a, b, margin[t])
+                assert margin[t] < tol, (t, a, b, margin[t])
                 break
+
+
+@pytest.mark.parametrize("policy", [
+    "auto", "fixed:lut_gather", "fixed:tl2", "fixed:lut_onehot",
+    "fixed:dequant_packed", "fixed:signflip", "autotuned"])
+def test_port_engine_matches_jax_engine(jax_served, policy):
+    eng = _port_engine(jax_served[0], t_smoke(ARCH), policy)
+    _assert_streams_match(eng, jax_served)
+
+
+@pytest.mark.parametrize("policy", ["auto", "fixed:w2a8", "fixed:tl2",
+                                    "autotuned"])
+def test_port_int8_engine_matches_jax_int8_engine(jax_served_int8, policy):
+    """W1.58A8 serving against the JAX engine (``TOL_INT8``), and every
+    kernel's logits bitwise equal to the port's ``fixed:ref``."""
+    tcfg = t_smoke(ARCH).with_(act_dtype="int8")
+    eng = _port_engine(jax_served_int8[0], tcfg, policy)
+    _assert_streams_match(eng, jax_served_int8, TOL_INT8)
+    ref = _port_engine(jax_served_int8[0], tcfg, "fixed:ref")
+    prompt, stream = _prompts()[0], jax_served_int8[1][0]
+    assert np.array_equal(_port_forced(eng.params, eng.cfg, prompt, stream),
+                          _port_forced(ref.params, ref.cfg, prompt, stream))
+
+
+@pytest.mark.parametrize("batch_size,chunk", [(3, CHUNK), (1, 5)])
+def test_engine_shape_universe_matches_jax(jax_params, batch_size, chunk):
+    jeng = jengine.DecodeEngine(jax_params, j_smoke(ARCH),
+                                batch_size=batch_size, max_len=MAX_LEN,
+                                prefill_chunk=chunk)
+    teng = _port_engine(jax_params, t_smoke(ARCH), "auto",
+                        batch_size=batch_size, prefill_chunk=chunk)
+    assert teng.matmul_shape_universe() == jeng.matmul_shape_universe()
+
+
+@pytest.mark.parametrize("act_dtype", ["none", "int8"])
+def test_autotune_shapes_times_every_eligible_kernel_at_every_shape(
+        jax_params, act_dtype):
+    eng = _port_engine(jax_params, t_smoke(ARCH).with_(act_dtype=act_dtype),
+                       "auto")
+    results = eng.autotune_shapes(reps=1)
+    assert sorted(results) == eng.matmul_shape_universe()
+    act = "int8" if act_dtype == "int8" else "bfloat16"
+    cache = tdispatch.AutotuneCache.load()
+    for (m, k, n), us in results.items():
+        want = {s.name for s in tdispatch.eligible_kernels(m, k, n, act)}
+        assert set(us) == want and ("w2a8" in us) == (act == "int8")
+        assert cache.best(m, k, n, act, "cpu") == min(us, key=us.get)
 
 
 def test_engine_without_device_needs_a_card():
@@ -289,3 +368,23 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["--autotune"], ["--policy", "fixed:w2a8", "--act-dtype", "int8"]])
+def test_serve_launcher_autotunes_and_pins_on_the_cpu(argv, capsys):
+    """``--autotune`` measures every shape before serving; a pin routes every
+    projection to its kernel.  On the CPU no hand kernel launches, and the
+    launcher reports every hand kernel's count."""
+    from repro_torch.launch import serve
+
+    reqs = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--requests", "3", "--new-tokens", "3",
+                       *argv])
+    assert all(r.done and len(r.out) == 3 for r in reqs)
+    out = capsys.readouterr().out
+    report = out.split("kernel launches: ")[1].splitlines()[0]
+    assert report == ", ".join(f"{k} 0" for k in tdispatch.launch_counts())
+    autotuned = "--autotune" in argv
+    assert out.count("[autotune]") == (8 if autotuned else 0)
+    assert bool(tdispatch.get_autotune_cache().entries) == autotuned
