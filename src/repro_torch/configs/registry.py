@@ -4,10 +4,11 @@ from __future__ import annotations
 
 import re
 
-from repro_torch.configs import bitnet_2b
+from repro_torch.configs import bitnet_2b, phi3p5_moe
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in [bitnet_2b]}
+ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
+                                 for m in [bitnet_2b, phi3p5_moe]}
 
 
 def _resolve(name: str) -> str:

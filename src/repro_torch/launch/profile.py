@@ -1,8 +1,9 @@
 """Device trace of serving decode steps: where one step's time goes.
 
 Builds the engine as ``launch.serve`` does (random weights from a seed,
-packed, every slot admitted), then runs ``--steps`` decode steps under
-``torch.profiler`` with CPU and CUDA activities and prints one JSON line:
+packed layer by layer, every slot admitted), then runs ``--steps`` decode
+steps under ``torch.profiler`` with CPU and CUDA activities and prints one
+JSON line:
 wall time per step, device busy time per step (the summed device time of
 every kernel and copy on the card), the device's idle share, kernel launches
 per step, the launches of each hand kernel per step, and the kernels that
@@ -11,6 +12,7 @@ take the most device time.
 Usage (on the card):
   python -m repro_torch.launch.profile --arch bitnet-b1.58-2b --batch 4 \
       [--steps 8] [--act-dtype none|int8] [--policy auto] [--smoke]
+  python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
-from repro_torch.models.decode import quantize_for_serving
-from repro_torch.models.model import init_params
+from repro_torch.models.decode import init_serving_params
 from repro_torch.serving.engine import DecodeEngine, Request
 
 
@@ -96,7 +97,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.act_dtype != "none":
         cfg = cfg.with_(act_dtype=args.act_dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    served = quantize_for_serving(init_params(cfg, gen, device), cfg)
+    served = init_serving_params(cfg, gen, device)
     engine = DecodeEngine(served, cfg, batch_size=args.batch, max_len=256,
                           matmul_policy=args.policy, device=device)
     out = {"arch": cfg.name, "batch": args.batch, "act_dtype": cfg.act_dtype,

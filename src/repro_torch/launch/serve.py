@@ -1,5 +1,5 @@
-"""Serving launcher: initialize a model from a seed, quantize it to the packed
-1.6-bit artifact, and serve generation through the continuous-batching
+"""Serving launcher: build a model's packed 1.6-bit serving weights from a
+seed, layer by layer, and serve generation through the continuous-batching
 scheduler on the card.
 
 Usage:
@@ -8,15 +8,21 @@ Usage:
       [--prefill-chunk 32] [--act-dtype none|int8] [--policy auto] \
       [--autotune] [--device cuda|cpu] [--seed 0]
 
-Weights are random (there is no checkpoint in the repository).  Every
-ternary projection goes through ``kernels.dispatch.ternary_matmul``; on the
-card the prior routes them to the hand-written CUDA kernels (``lut_gather``
-at M >= 3, ``tl2`` at M <= 2 and for int8 activations).  ``--autotune``
-first times every eligible kernel at the engine's shapes
+``--arch`` takes bitnet-b1.58-2b or phi3.5-moe-42b-a6.6b (16 experts,
+top-2, an MoE FFN on every layer).  Weights are random (there is no
+checkpoint in the repository); ``decode.init_serving_params`` packs each
+layer as it is drawn, so the bf16 tree is never held (phi3.5-moe's would
+not fit the card).  Every ternary projection goes through
+``kernels.dispatch.ternary_matmul``, every expert stack through
+``grouped_ternary_matmul``; on the card the prior routes them to the
+hand-written CUDA kernels (``lut_gather`` at M >= 3, ``tl2`` at M <= 2 and
+for int8 activations, ``grouped_dequant`` for the experts).
+``--autotune`` first times every eligible kernel at the engine's shapes
 (``DecodeEngine.autotune_shapes``, recorded in the cache at
 ``$REPRO_TORCH_AUTOTUNE_CACHE``) so ``auto`` dispatches on the
-measurements; ``--policy fixed:<kernel>`` pins one kernel.  The launcher
-prints how many times each hand kernel launched.
+measurements; ``--policy fixed:<kernel>`` pins one kernel (a dense pin maps
+to its grouped counterpart on the experts).  The launcher prints how many
+times each hand kernel launched.
 """
 
 from __future__ import annotations
@@ -29,9 +35,8 @@ import torch
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
-from repro_torch.models.decode import (packed_bits_per_weight,
-                                       quantize_for_serving)
-from repro_torch.models.model import init_params
+from repro_torch.models.decode import (init_serving_params,
+                                       packed_bits_per_weight)
 from repro_torch.serving.engine import DecodeEngine, Request
 from repro_torch.serving.scheduler import ContinuousScheduler
 
@@ -69,7 +74,7 @@ def main(argv: list[str] | None = None) -> list[Request]:
     if args.act_dtype != "none":
         cfg = cfg.with_(act_dtype=args.act_dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    served = quantize_for_serving(init_params(cfg, gen, device), cfg)
+    served = init_serving_params(cfg, gen, device)
     print(f"[serve] {cfg.name} on {device}: packed "
           f"{packed_bits_per_weight(served):.3f} b/w")
     engine = DecodeEngine(served, cfg, batch_size=args.batch,

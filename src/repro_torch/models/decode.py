@@ -1,13 +1,16 @@
-"""Serving-side paths of the dense attention family: ternary weight
-packing, the KV ring cache, prefill (whole and chunked) and single-token
-decode.
+"""Serving-side paths of the attention family (dense, and MoE with an
+expert FFN on every layer): ternary weight packing, the KV ring cache,
+prefill (whole and chunked) and single-token decode.
 
 ``quantize_for_serving`` turns trained parameters into the deployment
 artifact: every ternary projection becomes ``{"packed": uint8 base-3 (1.6
 b/w, rows padded to 128 bytes), "scale": absmean}``, byte for byte what the
-reference writes.  Every cache writer keeps one ring invariant: position
-``p`` lives at slot ``p % CL`` (:func:`_ring_slot`); a negative position
-(a dead scheduler row, a padded chunk tail) writes nothing.
+reference writes; an expert stack keeps one scale per expert.
+``init_serving_params`` builds the same artifact from a seed one layer at a
+time, so a model whose bf16 tree does not fit the card still serves.  Every
+cache writer keeps one ring invariant: position ``p`` lives at slot ``p %
+CL`` (:func:`_ring_slot`); a negative position (a dead scheduler row, a
+padded chunk tail) writes nothing.
 
 Unlike the reference's functional updates, the chunk and decode steps write
 their KV and positions into the cache tensors in place (the cache dict they
@@ -23,12 +26,14 @@ import torch
 
 from repro_torch.core import encoding
 from repro_torch.core.quantization import ternarize
-from repro_torch.kernels.dispatch import TernaryWeight
+from repro_torch.kernels.dispatch import GroupedTernaryWeight, TernaryWeight
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (append_attention, attention, ffn,
-                                       mask_padded_vocab, rms_norm)
-from repro_torch.models.model import (Params, embed_tokens, layer_blocks,
-                                      lm_head_w)
+from repro_torch.models.layers import (append_attention, attention,
+                                       mask_padded_vocab, moe_capacity,
+                                       rms_norm)
+from repro_torch.models.model import (Params, block_ffn, check_supported,
+                                      embed_tokens, init_layer, init_top,
+                                      layer_blocks, lm_head_w, stack_layers)
 
 logger = logging.getLogger(__name__)
 
@@ -41,27 +46,42 @@ FP_PARENTS = {"router"}
 FP_TOP = {"embed", "lm_head"}
 
 
-def _pack_leaf(leaf: dict) -> dict:
-    w = leaf["w"]  # [..., din, dout]
-    if w.ndim == 2:
-        w_t, scale = ternarize(w)
-    else:  # stacked [L, din, dout] → per-layer scale
-        w_t, scale = ternarize(w, axis=(-2, -1))
-        scale = scale[..., 0, 0]
-    packed = encoding.pack_base3(w_t.transpose(-1, -2))  # [..., dout, ceil(din/5)]
-    # pad the byte dim to a multiple of 128 (the reference's layout; the
-    # padding bytes decode past the logical width and are sliced off)
+def _pack_matrix(w: torch.Tensor):
+    """One ``[din, dout]`` matrix → (base-3 bytes ``[dout, ceil(din/5)]``
+    with the rows padded to a multiple of 128 bytes, bf16 absmean scale).
+    The padding bytes decode past the logical width, where the kernels
+    never read."""
+    w_t, scale = ternarize(w)
+    packed = encoding.pack_base3(w_t.T)
     pad = (-packed.shape[-1]) % 128
     if pad:
         packed = torch.nn.functional.pad(packed, (0, pad))
-    out = {"packed": packed, "scale": scale.to(torch.bfloat16)}
+    return packed, scale.to(torch.bfloat16)
+
+
+def _pack_leaf(leaf: dict) -> dict:
+    """``{"w": [..., din, dout]}`` → ``{"packed": [..., dout, nb], "scale":
+    [...]}``: one absmean scale per ``[din, dout]`` matrix, so a stacked
+    leaf ``[L, din, dout]`` gets per-layer scales and an expert stack
+    ``[L, E, din, dout]`` per-expert ones (the reference's per-layer and
+    per-expert scales).  Every matrix is packed on its own, so a layer
+    packs to the same bytes alone (``init_serving_params``) as inside its
+    stack."""
+    w = leaf["w"]
+    lead = w.shape[:-2]
+    parts = [_pack_matrix(m) for m in w.reshape(-1, *w.shape[-2:])]
+    packed = torch.stack([pk for pk, _ in parts])
+    scale = torch.stack([sc for _, sc in parts])
+    out = {"packed": packed.reshape(*lead, *packed.shape[1:]),
+           "scale": scale.reshape(lead)}
     if "b" in leaf:
         out["b"] = leaf["b"]
     return out
 
 
 def quantize_for_serving(p: Params, cfg: ModelConfig) -> Params:
-    """Training params → packed-ternary serving params."""
+    """Training params → packed-ternary serving params (the MoE router, the
+    embedding and the LM head stay float)."""
 
     def walk(node, key_path):
         if isinstance(node, dict):
@@ -72,6 +92,22 @@ def quantize_for_serving(p: Params, cfg: ModelConfig) -> Params:
         return node
 
     return walk(p, ())
+
+
+def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
+                        device: str | torch.device = "cuda") -> Params:
+    """``quantize_for_serving(init_params(cfg, generator, device), cfg)``
+    without ever holding the bf16 tree: the same draws, one layer at a
+    time, each layer packed and its bf16 weights freed before the next is
+    drawn.  Absmean scales are per layer (per expert in MoE stacks), so the
+    result is the same, byte for byte.  Peak memory is the packed tree plus
+    one layer's bf16 weights and its packing temporaries."""
+    check_supported(cfg)
+    p = init_top(cfg, generator, device)
+    layers = [quantize_for_serving(init_layer(cfg, generator, device), cfg)
+              for _ in range(cfg.n_layers)]
+    p["blocks"] = stack_layers(layers)
+    return p
 
 
 def packed_bits_per_weight(p: Params) -> float:
@@ -93,18 +129,27 @@ def packed_bits_per_weight(p: Params) -> float:
     return bits / max(weights, 1)
 
 
+def _logical_k(cfg: ModelConfig, path: tuple) -> int:
+    """In-features of the packed projection at ``path`` in a block (the
+    packed rows are padded past it)."""
+    if path[-1] != "wo":
+        return cfg.d_model
+    return cfg.q_dim if path[-2] == "attn" else cfg.d_ff
+
+
 def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
     """The serving tree with ``p["blocks"]`` split into per-layer dicts whose
-    packed leaves carry a bound :class:`TernaryWeight` under ``"tw"``, so
-    each kernel's weight encoding is derived once and reused by every step.
-    The input tree is not modified."""
+    packed leaves carry a bound :class:`TernaryWeight` under ``"tw"``, or,
+    for MoE expert stacks, a :class:`GroupedTernaryWeight` under ``"gw"``,
+    so each kernel's weight encoding is derived once and reused by every
+    step.  The input tree is not modified."""
     def bind(node, path):
         if isinstance(node, dict):
             if "packed" in node:
-                # logical K (the packed rows are padded past it)
-                k = cfg.d_model
-                if path[-1] == "wo":
-                    k = cfg.q_dim if path[-2] == "attn" else cfg.d_ff
+                k = _logical_k(cfg, path)
+                if path[-2] == "moe":
+                    return dict(node, gw=GroupedTernaryWeight.from_packed(
+                        node["packed"], node["scale"], k, mu=cfg.mu))
                 return dict(node, tw=TernaryWeight.from_packed(
                     node["packed"], node["scale"], k, mu=cfg.mu))
             return {key: bind(v, path + (key,)) for key, v in node.items()}
@@ -123,7 +168,11 @@ def layer_matmul_problems(cfg: ModelConfig, batch_size: int,
 
     The port's copy covers the attention projections and the ``d_ff`` /
     ``dense_ff`` feed-forwards; the mamba2/zamba2 and xlstm projections come
-    with those families, and asking for them raises."""
+    with those families, and asking for them raises.  As in the reference,
+    an MoE config lists its ``d_ff`` problems too, though its expert
+    matmuls dispatch as grouped problems
+    (:func:`layer_grouped_matmul_problems`) and no dense projection of it
+    has those shapes."""
     if cfg.block_pattern not in ("attn",):
         raise NotImplementedError(
             f"layer_matmul_problems: the {cfg.block_pattern!r} block pattern "
@@ -159,6 +208,32 @@ def layer_matmul_shapes(cfg: ModelConfig, batch_size: int,
                                                            seq_len)})
 
 
+def layer_grouped_matmul_problems(cfg: ModelConfig, batch_size: int,
+                                  seq_len: int = 1
+                                  ) -> list[tuple[str, int, int, int, int]]:
+    """Role-tagged grouped (MoE expert) problems ``(role, E, C, K, N)`` one
+    forward step issues through ``dispatch.grouped_ternary_matmul``, ``C``
+    the step's per-expert capacity; empty for configs without experts."""
+    if not cfg.n_experts:
+        return []
+    E = cfg.n_experts
+    cap = moe_capacity(cfg, batch_size * seq_len)
+    d, f = cfg.d_model, cfg.d_ff
+    return sorted({("wi", E, cap, d, f), ("wo", E, cap, f, d)})
+
+
+def layer_grouped_matmul_shapes(cfg: ModelConfig, batch_size: int,
+                                seq_len: int = 1
+                                ) -> list[tuple[int, int, int, int]]:
+    """The distinct grouped problems ``(E, C, K, N)`` of one forward step
+    (:func:`layer_grouped_matmul_problems` without the roles): the expert
+    stacks (``wi``/``wg``: ``K = d_model``, ``N = d_ff``; ``wo`` reversed)
+    at the step's capacity."""
+    return sorted({(e, c, k, n)
+                   for _, e, c, k, n in layer_grouped_matmul_problems(
+                       cfg, batch_size, seq_len)})
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
@@ -172,7 +247,7 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
                device: str | torch.device = "cuda") -> dict:
     if cfg.block_pattern != "attn" or cfg.is_encdec:
         raise NotImplementedError(
-            f"the port's cache covers the dense attention family, not "
+            f"the port's cache covers the attention family, not "
             f"{cfg.block_pattern}")
     CL = cache_len(cfg, s_max)
     shape = (cfg.n_layers, B, CL, cfg.n_kv_heads, cfg.head_dim)
@@ -258,8 +333,8 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
         a, (k, v) = attention(blk["attn"], hn, cfg, positions=positions,
                               window=cfg.window, return_kv=True)
         x = x + a
-        x = x + ffn(blk["ffn"], rms_norm(blk["ln2"], x,
-                                         offset=cfg.rmsnorm_offset), cfg)
+        x = x + block_ffn(blk, rms_norm(blk["ln2"], x,
+                                        offset=cfg.rmsnorm_offset), cfg)[0]
         ks.append(k)
         vs.append(v)
     x = rms_norm(p["final_norm"], x, offset=cfg.rmsnorm_offset)
@@ -315,8 +390,8 @@ def _chunk_forward(p: Params, cfg: ModelConfig, cache: dict,
                                      cache_k=cache["k"][i], cache_v=cache["v"][i],
                                      k_positions=old_pos, window=cfg.window)
         h = h + a
-        h = h + ffn(blk["ffn"], rms_norm(blk["ln2"], h,
-                                         offset=cfg.rmsnorm_offset), cfg)
+        h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
+                                        offset=cfg.rmsnorm_offset), cfg)[0]
         ks.append(k)
         vs.append(v)
     cache = _scatter_rows(cache, slot, positions, torch.stack(ks), torch.stack(vs))
@@ -371,8 +446,8 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                                      cache_k=cache["k"][i], cache_v=cache["v"][i],
                                      k_positions=old_pos, window=cfg.window)
         h = h + a
-        h = h + ffn(blk["ffn"], rms_norm(blk["ln2"], h,
-                                         offset=cfg.rmsnorm_offset), cfg)
+        h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
+                                        offset=cfg.rmsnorm_offset), cfg)[0]
         ks.append(k)
         vs.append(v)
     cache = _scatter_rows(cache, slot[:, None], positions, torch.stack(ks),

@@ -1,5 +1,5 @@
-"""Shared neural blocks of the dense family: norms, RoPE, ternary-aware
-linears, GQA attention and gated FFNs.
+"""Shared neural blocks of the attention family: norms, RoPE, ternary-aware
+linears, GQA attention, gated FFNs and the top-k MoE FFN.
 
 Every projection goes through :func:`linear`, which dispatches on the leaf:
 
@@ -8,6 +8,12 @@ Every projection goes through :func:`linear`, which dispatches on the leaf:
     :func:`repro_torch.kernels.dispatch.ternary_matmul`; a ``"tw"`` entry
     (a bound :class:`~repro_torch.kernels.dispatch.TernaryWeight`) carries
     the kernel encodings derived once, see ``decode.bind_serving_weights``.
+
+MoE expert stacks go through :func:`moe_ffn`'s expert matmuls, which take
+``{"packed": [E, out, in/5], "scale": [E]}`` to
+:func:`repro_torch.kernels.dispatch.grouped_ternary_matmul` (a ``"gw"``
+entry carries the bound
+:class:`~repro_torch.kernels.dispatch.GroupedTernaryWeight`).
 
 The arithmetic follows the reference op for op, including where it rounds
 to bf16, so the two agree to bf16 tolerance.
@@ -22,7 +28,9 @@ import torch
 
 from repro_torch.core.quantization import (fake_quant_acts, fake_quant_ternary,
                                            quantize_activations_int8)
-from repro_torch.kernels.dispatch import TernaryWeight, ternary_matmul
+from repro_torch.kernels.dispatch import (GroupedTernaryWeight, TernaryWeight,
+                                          grouped_ternary_matmul,
+                                          ternary_matmul)
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
@@ -224,6 +232,139 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = _act(cfg.act_fn)(linear(p["wi"], x, cfg))
     return linear(p["wo"], h, cfg)
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Per-expert capacity ``C`` of a forward over ``tokens`` tokens: the
+    expert-buffer rows :func:`moe_ffn` allocates, and the capacity the
+    autotune shape universe enumerates."""
+    return max(int(cfg.capacity_factor * tokens * cfg.experts_per_token
+                   / cfg.n_experts), 1)
+
+
+def init_moe(g: torch.Generator, cfg: ModelConfig,
+             device: torch.device) -> Params:
+    """One layer's MoE parameters, drawn from ``g`` on ``device`` in the
+    reference's shapes, dtypes and scales: an f32 router ``[D, E]`` and
+    bf16 expert stacks ``[E, din, dout]`` (plus a shared expert where the
+    config has one)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape, scale, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, dtype=dtype,
+                           device=device) * scale
+
+    p = {"router": {"w": normal((d, E), s, torch.float32)},
+         "wi": {"w": normal((E, d, f), s)},
+         "wg": {"w": normal((E, d, f), s)},
+         "wo": {"w": normal((E, f, d), 1.0 / math.sqrt(f))}}
+    if cfg.moe_shared_expert:
+        p["shared"] = {"wi": {"w": normal((d, f), s)},
+                       "wo": {"w": normal((f, d), 1.0 / math.sqrt(f))}}
+        if cfg.ffn_gated:
+            p["shared"]["wg"] = {"w": normal((d, f), s)}
+    return p
+
+
+def _expert_matmul(leaf: Params, cfg: ModelConfig, d_in: int):
+    """``f: [E, C, d_in] → [E, C, d_out]`` for packed (``{"packed" [E,
+    d_out, d_in/5], "scale" [E]}``) or float (``{"w" [E, d_in, d_out]}``,
+    fake-quantized per expert under QAT) expert weights.  Packed stacks go
+    through :func:`grouped_ternary_matmul`, so ``cfg.matmul_policy``
+    governs them as it does the dense projections; with int8 activations
+    each buffer row is quantized per token first (the zero rows of empty
+    slots quantize to zero codes) and its scale is the second rank-1
+    correction."""
+    if "packed" in leaf:
+        gw = leaf.get("gw") or GroupedTernaryWeight.from_packed(
+            leaf["packed"], leaf["scale"], d_in, mu=cfg.mu)
+        if cfg.act_dtype == "int8":
+            def run(t):
+                t_q, t_scale = quantize_activations_int8(t)
+                y = grouped_ternary_matmul(t_q, gw, policy=cfg.matmul_policy)
+                return (y * t_scale).to(t.dtype)
+
+            return run
+        return lambda t: grouped_ternary_matmul(t, gw,
+                                                policy=cfg.matmul_policy)
+    w = leaf["w"]
+    if cfg.quant == "qat":
+        w = fake_quant_ternary(w, axis=(-2, -1))
+    return lambda t: torch.einsum("ecd,edf->ecf", t, w.to(t.dtype))
+
+
+def route(router: Params, xf: torch.Tensor, cfg: ModelConfig):
+    """Token-choice routing of ``xf [T, D]``: ``(probs [T, E], gate_vals
+    [T, K], gate_idx [T, K])`` from the f32 router softmax, the top-k
+    experts (ties to the lower index, as the reference's ``top_k``; a
+    stable descending sort does the same on every device) and their gates
+    renormalized to sum to 1."""
+    logits = xf.to(torch.float32) @ router["w"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    K = cfg.experts_per_token
+    gate_vals, gate_idx = gate_vals[:, :K], gate_idx[:, :K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k token-choice MoE with the reference's sort-based dispatch:
+    f32 router softmax, top-k (ties to the lower expert index), gate
+    renormalization, a stable sort of the token-expert assignments, each
+    assignment's slot in its expert's ``C`` rows (later ones past ``C``
+    drop to a sentinel row), the grouped expert matmuls over the ``[E, C,
+    D]`` buffer, and the gated results added back per token in the
+    activation dtype.  Every row of ``x`` routes and takes capacity,
+    including rows whose output the caller discards (dead slots, padded
+    chunk tails).  Returns ``(out [B, S, D], aux_loss)``."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(T, D)
+    probs, gate_vals, gate_idx = route(p["router"], xf, cfg)
+
+    # assignments per expert (exact small integers in f32; an index_add,
+    # unlike bincount, needs no readback to the host)
+    flat_e = gate_idx.reshape(T * K)
+    counts = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    # load-balance aux loss (Switch): E * Σ_e f_e · p_e
+    aux = E * torch.sum(probs.mean(0) * (counts / (T * K)))
+
+    cap = moe_capacity(cfg, T)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    tok_of = order // K
+    counts = counts.long()
+    start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(T * K, device=x.device) - start[sorted_e]
+    keep = slot < cap
+    # dropped assignments target the sentinel row E·cap
+    flat_idx = torch.where(keep, sorted_e * cap + slot, E * cap)
+    buf = torch.zeros((E * cap + 1, D), dtype=xf.dtype, device=x.device)
+    buf[flat_idx] = xf[tok_of]
+    disp = buf[:-1].reshape(E, cap, D)
+
+    up_i = _expert_matmul(p["wi"], cfg, D)
+    up_g = _expert_matmul(p["wg"], cfg, D)
+    down = _expert_matmul(p["wo"], cfg, cfg.d_ff)
+    h = _act(cfg.act_fn)(up_g(disp)) * up_i(disp)
+    eout = down(h).reshape(E * cap, D)
+
+    gathered = torch.where(keep[:, None],
+                           eout[torch.clamp_max(flat_idx, E * cap - 1)],
+                           torch.zeros((), dtype=eout.dtype, device=x.device))
+    gates_sorted = gate_vals.reshape(T * K)[order].to(xf.dtype)
+    # two contributions a row (top-2) round the same in any order
+    out = torch.zeros((T, D), dtype=xf.dtype, device=x.device).index_add_(
+        0, tok_of, gathered * gates_sorted[:, None])
+    out = out.reshape(B, S, D)
+    if "shared" in p:
+        out = out + ffn(p["shared"], x, cfg)
+    return out, aux
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -10,7 +10,8 @@ live batch on the last chunk, and a fused sample → mask → decode step with
 stop and budget masking on the device.
 
 :meth:`DecodeEngine.autotune_shapes` measures every eligible kernel at the
-engine's decode and admission-chunk shapes, so ``policy="auto"`` serving
+engine's decode and admission-chunk shapes, dense and grouped (MoE expert
+stacks at their per-expert capacities), so ``policy="auto"`` serving
 dispatches on the card's own times.
 
 Prefix caching, speculative decoding, mesh sharding and the generational
@@ -31,6 +32,7 @@ from repro_torch.kernels.dispatch import autotune, get_autotune_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        decode_step, init_cache,
+                                       layer_grouped_matmul_problems,
                                        layer_matmul_problems,
                                        prefill_chunks_of,
                                        supports_chunked_prefill)
@@ -135,31 +137,47 @@ class DecodeEngine:
     # kernel autotuning over the engine's shapes
     # ------------------------------------------------------------------
 
-    def matmul_shape_universe(self) -> list[tuple[int, int, int]]:
-        """Every dense ternary-matmul problem ``(M, K, N)`` this engine's
-        serving path dispatches: decode at the batch (``M = B``) and the
+    def _problems(self) -> list[tuple[tuple[int, ...], int | None]]:
+        """``(shape, e)`` of every ternary-matmul problem this engine's
+        serving path dispatches: dense ``(M, K, N)`` with ``e`` None, grouped
+        ``(E, C, K, N)`` with ``e = E``, at decode (``M = B``) and at the
         admission chunk (``M = chunk``; requests are prefilled one at a
-        time, chunk by chunk).  The speculative shapes (verify, draft decode,
-        draft chunk) come with speculative decoding."""
-        return sorted({(m, k, n)
-                       for bs, sl in ((self.B, 1), (1, self.prefill_chunk))
-                       for _, m, k, n in layer_matmul_problems(self.cfg, bs,
-                                                               sl)})
+        time, chunk by chunk)."""
+        probs = set()
+        for bs, sl in ((self.B, 1), (1, self.prefill_chunk)):
+            probs |= {((m, k, n), None)
+                      for _, m, k, n in layer_matmul_problems(self.cfg, bs, sl)}
+            probs |= {((e, c, k, n), e)
+                      for _, e, c, k, n in layer_grouped_matmul_problems(
+                          self.cfg, bs, sl)}
+        return sorted(probs, key=lambda p: p[0])
+
+    def matmul_shape_universe(self) -> list[tuple[int, ...]]:
+        """Every ternary-matmul problem this engine's serving path
+        dispatches: dense ``(M, K, N)`` triples at decode (``M = B``) and the
+        admission chunk (``M = chunk``), and for MoE configs the grouped
+        ``(E, C, K, N)`` quads of the expert stacks at the matching
+        per-expert capacities.  The speculative shapes (verify, draft
+        decode, draft chunk) come with speculative decoding."""
+        return [shape for shape, _ in self._problems()]
 
     def autotune_shapes(self, **autotune_kw) -> dict:
-        """Measure every eligible kernel at each of this engine's shapes
-        (:func:`repro_torch.kernels.dispatch.autotune`, on the engine's
-        device) and record the times in the process's autotune cache, so
-        ``policy="auto"`` serving dispatches on measurements instead of the
-        prior; one cache write at the end.  The act dtype is the one
-        dispatch keys on: ``int8`` under ``act_dtype="int8"``, else the
-        config's dtype.  Returns ``{(M, K, N): {kernel: µs}}``."""
+        """Measure every eligible kernel at each of this engine's shapes,
+        dense and grouped (:func:`repro_torch.kernels.dispatch.autotune`, on
+        the engine's device), and record the times in the process's
+        autotune cache, so ``policy="auto"`` serving dispatches on
+        measurements instead of the prior; one cache write at the end.  The
+        act dtype is the one dispatch keys on: ``int8`` under
+        ``act_dtype="int8"``, else the config's dtype.  Returns ``{shape:
+        {kernel: µs}}`` with the shapes of :meth:`matmul_shape_universe`."""
         cache = get_autotune_cache()
         act = "int8" if self.cfg.act_dtype == "int8" else self.cfg.dtype
-        results = {(m, k, n): autotune(m, k, n, act, mu=self.cfg.mu,
-                                       cache=cache, save=False,
-                                       device=self.device, **autotune_kw)
-                   for m, k, n in self.matmul_shape_universe()}
+        results = {}
+        for shape, e in self._problems():
+            m, k, n = shape[-3:]
+            results[shape] = autotune(m, k, n, act, mu=self.cfg.mu,
+                                      cache=cache, save=False, e=e,
+                                      device=self.device, **autotune_kw)
         cache.save()
         return results
 

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: lut_gather, lut_onehot, tl2, dequant_packed, w2a8, signflip.
+the card: lut_gather, lut_onehot, tl2, dequant_packed, w2a8, signflip, and
+the grouped (MoE expert stack) grouped_dequant and grouped_w2a8.
 
 These tests need a CUDA card and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); elsewhere they skip.  The
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core import encoding as tenc
 from repro_torch.kernels import dequant_matmul as tdeq
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import lut_matmul as tlut
 from repro_torch.kernels import signflip_matmul as tsf
 from repro_torch.kernels import tl2_matmul as ttl2
@@ -216,3 +218,88 @@ def test_autotune_on_the_card_times_every_eligible_kernel(cuda, act, tmp_path):
     best = min(us, key=us.get)
     assert tdispatch.select_kernel(4, 640, 2560, act, device="cuda",
                                    cache=cache).name == best
+
+
+def _grouped_case(seed, E, C, K, N, int8, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randint(-127, 128, (E, C, K), generator=g, device=device,
+                       dtype=torch.int8) if int8 else
+         torch.randn((E, C, K), generator=g, device=device,
+                     dtype=torch.bfloat16))
+    w = torch.randint(-1, 2, (E, N, K), generator=g, device=device,
+                      dtype=torch.int8)
+    packed = tenc.pack_base3(w)
+    return x, w, torch.nn.functional.pad(packed,
+                                         (0, (-packed.shape[-1]) % 128))
+
+
+# (E, C, K, N): ragged small shapes at every row tile (C = 1, 2, 5, 9), then
+# phi3.5-moe's expert stacks at decode (C = 1) and at the 32-token
+# admission chunk (C = 5)
+GROUPED = [(3, 1, 50, 37), (2, 2, 301, 130), (4, 5, 133, 260), (2, 9, 64, 7),
+           (16, 1, 4096, 6400), (16, 5, 6400, 4096)]
+
+
+@pytest.mark.parametrize("E,C,K,N", GROUPED)
+def test_grouped_dequant_kernel_matches_plain(cuda, E, C, K, N):
+    x, _, packed = _grouped_case(14, E, C, K, N, False, cuda)
+    n0 = tgm.grouped_packed_matmul.launches
+    got = tgm.grouped_packed_matmul(x, packed, K)
+    assert tgm.grouped_packed_matmul.launches == n0 + 1
+    want = tgm.grouped_packed_matmul_torch(x, packed, K)
+    torch.cuda.synchronize()
+    assert got.shape == (E, C, N) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= _atol(x.reshape(-1, K))
+
+
+@pytest.mark.parametrize("E,C,K,N", GROUPED)
+def test_grouped_w2a8_kernel_exact(cuda, E, C, K, N):
+    x, w, packed = _grouped_case(15, E, C, K, N, True, cuda)
+    n0 = tgm.grouped_w2a8_matmul.launches
+    got = tgm.grouped_w2a8_matmul(x, packed, K)
+    assert tgm.grouped_w2a8_matmul.launches == n0 + 1
+    assert got.shape == (E, C, N) and got.dtype == torch.int32
+    assert torch.equal(got, tgm.grouped_w2a8_matmul_torch(x, packed, K))
+    if E * N * K <= 1 << 20:
+        want = torch.einsum("eck,enk->ecn", x.cpu().to(torch.int64),
+                            w.cpu().to(torch.int64))
+        assert torch.equal(got.cpu().to(torch.int64), want)
+
+
+def test_grouped_wrappers_never_run_the_plain_version_on_the_card(
+        cuda, monkeypatch):
+    """A CUDA tensor reaches the kernel: the plain twins are replaced by
+    functions that fail, and each call still launches (and counts) once."""
+    def boom(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tgm, "grouped_packed_matmul_torch", boom)
+    monkeypatch.setattr(tgm, "grouped_w2a8_matmul_torch", boom)
+    x, _, packed = _grouped_case(16, 4, 1, 301, 130, False, cuda)
+    xq, _, _ = _grouped_case(16, 4, 1, 301, 130, True, cuda)
+    d0, w0 = tgm.grouped_packed_matmul.launches, tgm.grouped_w2a8_matmul.launches
+    tgm.grouped_packed_matmul(x, packed, 301)
+    tgm.grouped_w2a8_matmul(xq, packed, 301)
+    torch.cuda.synchronize()
+    assert tgm.grouped_packed_matmul.launches == d0 + 1
+    assert tgm.grouped_w2a8_matmul.launches == w0 + 1
+    with pytest.raises(ValueError, match="int8"):
+        tgm.grouped_w2a8_matmul(x, packed, 301)
+    assert tgm.grouped_w2a8_matmul.launches == w0 + 1
+
+
+def test_grouped_dispatch_on_the_card_launches_grouped_dequant(cuda):
+    """The prior on the card routes an expert stack to grouped_dequant,
+    whose scaled result matches grouped_ref's."""
+    x, _, packed = _grouped_case(17, 8, 1, 640, 256, False, cuda)
+    gw = tdispatch.GroupedTernaryWeight.from_packed(
+        packed, torch.linspace(0.5, 1.0, 8, device=cuda), 640)
+    n0 = tgm.grouped_packed_matmul.launches
+    got = tdispatch.grouped_ternary_matmul(x, gw, policy="prior")
+    assert tgm.grouped_packed_matmul.launches == n0 + 1
+    want = tdispatch.grouped_ternary_matmul(x, gw, policy="fixed:ref")
+    assert tgm.grouped_packed_matmul.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (8, 1, 256)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2 ** -7 * float(want.float().abs().max())

@@ -124,12 +124,17 @@ def test_prior_on_cuda_matches_jax_prior_on_tpu(m, act):
 
 
 def test_fixed_unported_kernel_raises_keyerror_listing_kernels():
-    listed = ("dequant_packed.*lut_gather.*lut_onehot.*ref.*signflip.*tl2.*"
+    """Every TPU kernel is ported, so the only unknown pin is a bogus name:
+    it raises listing all twelve kernels, dense and grouped; a grouped
+    kernel pinned on a dense problem is refused as unsupported."""
+    listed = ("dequant_packed.*grouped_dequant.*grouped_ref.*grouped_tl2.*"
+              "grouped_w2a8.*lut_gather.*lut_onehot.*ref.*signflip.*tl2.*"
               "tl2_ref.*w2a8")
     with pytest.raises(KeyError, match=listed):
         tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:bogus")
-    with pytest.raises(KeyError, match="registered"):
-        tdispatch.select_kernel(4, 64, 64, "bfloat16", policy="fixed:grouped_dequant")
+    with pytest.raises(ValueError, match="does not support"):
+        tdispatch.select_kernel(4, 64, 64, "bfloat16",
+                                policy="fixed:grouped_dequant")
 
 
 def test_autotune_cache_roundtrip_steers_auto(tmp_path):
@@ -328,11 +333,19 @@ def test_ops_linears_and_encoders_match_jax(B, O, K):
 
 
 def test_registry_is_the_jax_dense_registry():
+    """The dense registry, and since the MoE slice the grouped one behind
+    it: the same names in the same order, dtypes, hand kernels where the
+    reference has Pallas kernels, and grouped counterparts."""
     dense = [s.name for s in jdispatch.REGISTRY.values() if not s.grouped]
-    assert list(tdispatch.REGISTRY) == dense
+    assert [s.name for s in tdispatch.REGISTRY.values() if not s.grouped] \
+        == dense
+    assert list(tdispatch.REGISTRY) == list(jdispatch.REGISTRY)
     for name, spec in tdispatch.REGISTRY.items():
-        assert spec.act_dtypes == jdispatch.REGISTRY[name].act_dtypes, name
-        assert spec.hand == jdispatch.REGISTRY[name].pallas, name
+        j = jdispatch.REGISTRY[name]
+        assert spec.act_dtypes == j.act_dtypes, name
+        assert spec.hand == j.pallas, name
+        assert (spec.grouped, spec.grouped_variant) == \
+            (j.grouped, j.grouped_variant), name
 
 
 def test_ternary_weight_packs_trits_once():

@@ -114,7 +114,7 @@ def test_attn_blocks_match_jax_op_by_op(trees):
         tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(torch.bfloat16)
         jy, _ = jmodel._attn_block(jblk, jx, jcfg, jnp.arange(12), 0,
                                    is_moe=False)
-        ty = tmodel._attn_block(tblk, tx, tcfg, torch.arange(12), 0)
+        ty, _ = tmodel._attn_block(tblk, tx, tcfg, torch.arange(12), 0)
         want = np.asarray(jy.astype(jnp.float32))
         assert np.abs(ty.float().numpy() - want).max() <= 2.0 ** -6, i
         jx = jy
