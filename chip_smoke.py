@@ -75,7 +75,18 @@ Tolerances:
     The full-model logits are recorded with the number of tokens whose
     experts differ; ``moe_batch4`` and ``moe_int8_w2a8`` are held to 2^-3
     and 0 there as the dense paths are, and ``moe_autotuned`` only where
-    no token was rerouted.
+    no token was rerouted.  ``moe_batch4`` and ``moe_autotuned`` are also
+    run with each layer's top-2 experts teacher-forced to ``fixed:ref``'s
+    (gates from the path's own router), and those logits are held to 2^-3
+    of ``fixed:ref``'s: a bound on the kernels over the whole model with
+    the routing noise taken out.
+
+Timing: each kernel, its plain version and the library yardstick are timed
+call by call from a cold L2 (``time_cold``): a read of 128 MB before every
+call, the calls queued behind a device sleep so each event pair holds
+device time only.  ``signflip`` and ``grouped_dequant`` are also timed the
+way chip_smoke did before (64 MB zeroed, no head start) to show what that
+overstated.
 """
 
 from __future__ import annotations
@@ -105,6 +116,14 @@ LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1}}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+#: bytes read to flush the 50 MB L2 before each timed call
+FLUSH_BYTES = 128 << 20
+#: bytes the timer before the repair zeroed instead
+ZERO_FLUSH_BYTES = 64 << 20
+#: the kernels also timed the old way (the H100 SXM's SM clock tops out
+#: near 2 GHz, so a sleep of this many cycles a second lasts at least that)
+ZERO_FLUSH_TIMED = ("signflip", "grouped_dequant")
+SLEEP_CYCLES_PER_S = 2e9
 LOGIT_ATOL = 2.0 ** -3
 #: sub-layer outputs with the same input, kernels vs ``ref``, relative to
 #: the output's largest magnitude (see the module docstring)
@@ -176,13 +195,40 @@ def gpu_line() -> str:
 
 
 def time_cold(torch, fn, reps: int, flush) -> float:
-    """Mean device time (ms) of ``fn()`` with the L2 cache flushed before
-    every launch, as a decode step finds each layer's weights."""
+    """Mean device time (ms) of ``fn()`` from a cold L2, as a decode step
+    finds each layer's weights.  Before every call the L2 is flushed by
+    reading ``flush`` (more than twice its size; a read leaves no dirty
+    lines for the call to write back), and the reps are queued behind a
+    device sleep longer than their enqueue takes, so the window between a
+    call's two events holds the call's device time only."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.sum()
+    fn()
+    host_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * host_s + 1e-3)))
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def time_zero_flush(torch, fn, reps: int, zeroed) -> float:
+    """The timer before the repair, kept to measure what it overstates: 64
+    MB zeroed before each call (dirty lines the call's reads then evict),
+    the start event recorded before the call's host work."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        zeroed.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -193,11 +239,12 @@ def time_cold(torch, fn, reps: int, flush) -> float:
     return total / reps
 
 
-def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
+def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, bufs,
                 e: int | None = None):
     """Check one hand kernel against its plain version at one shape and
     time both and the library yardstick.  A grouped kernel takes ``e``
-    experts of ``m`` rows (the capacity)."""
+    experts of ``m`` rows (the capacity).  ``bufs``: the buffer read to
+    flush the L2 and the one the old timer zeroed."""
     from repro_torch.core import encoding
     from repro_torch.kernels import dequant_matmul as deq
     from repro_torch.kernels import grouped_matmul as gm
@@ -207,6 +254,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
     from repro_torch.kernels import w2a8_matmul as w8
     from repro_torch.kernels.dispatch import TernaryWeight
 
+    flush, zeroed = bufs
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 7 * m + k + n)
     lead = () if e is None else (e,)
@@ -312,6 +360,10 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
            "ms": time_cold(torch, kernel, 20, flush),
            "plain_ms": time_cold(torch, plain, 5, flush),
            "library_ms": time_cold(torch, library, 20, flush),
+           **({"zero_flush_ms": time_zero_flush(torch, kernel, 20, zeroed),
+               "zero_flush_library_ms": time_zero_flush(torch, library, 20,
+                                                        zeroed)}
+              if name in ZERO_FLUSH_TIMED else {}),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
@@ -377,7 +429,7 @@ def kernel_cases(model: str) -> list[tuple]:
     return sorted(cases)
 
 
-def check_kernels(torch, cases, flush) -> list[dict]:
+def check_kernels(torch, cases, bufs) -> list[dict]:
     rows = []
     for model, name, m, act in cases:
         if name in GROUPED_KERNELS:
@@ -385,7 +437,7 @@ def check_kernels(torch, cases, flush) -> list[dict]:
         else:
             shapes = [(None, k, n) for k, n in LAYER_KN[model]]
         for e, k, n in shapes:
-            row = kernel_case(torch, name, m, k, n, act, flush, e=e)
+            row = kernel_case(torch, name, m, k, n, act, bufs, e=e)
             row["model"] = model
             emit("kernel", **row)
             rows.append(row)
@@ -403,8 +455,11 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
     sel = {(r["K"], r["N"]): r for r in rows
            if r["kernel"] == name and r["M"] == m and r["act"] == act
            and r["model"] == model}
+    keys = ["ms", "plain_ms", "library_ms"]
+    keys += [k for k in ("zero_flush_ms", "zero_flush_library_ms")
+             if all(k in r for r in sel.values())]
     tot = {key: sum(sel[kn][key] * c for kn, c in counts.items())
-           for key in ("ms", "plain_ms", "library_ms")}
+           for key in keys}
     t_bytes = sum(sel[kn]["bytes"] * c for kn, c in counts.items()) \
         / HBM_BYTES_PER_S * 1e3
     t_ops = sum(sel[kn]["ops"] / sel[kn]["ops_per_s"] * c
@@ -539,6 +594,69 @@ def _prompt_chunks(torch, vocab: int):
         yield toks, pos, valid - 1
 
 
+def _prefill_logits(torch, served, cfg):
+    """The cross-check prompt's last-token logits after prefill under
+    ``cfg``, chunk by chunk as admission runs it."""
+    from repro_torch.models.decode import (bind_serving_weights, init_cache,
+                                           prefill_chunk)
+
+    p = bind_serving_weights(served, cfg)
+    cache = init_cache(cfg, 1, 256, device=DEVICE)
+    for toks, pos, take in _prompt_chunks(torch, cfg.vocab_size):
+        cache, out = prefill_chunk(p, cfg, cache, toks, pos, take)
+    return out[0, :cfg.vocab_size].float()
+
+
+def forced_check(torch, served, cfg) -> dict:
+    """Prefill logits of the cross-check prompt through the path's kernels
+    (``cfg.matmul_policy``) with every MoE layer call's top-k experts
+    teacher-forced to those ``fixed:ref`` takes, against ``fixed:ref``:
+    within ``LOGIT_ATOL`` (0 with int8 activations).  The path keeps its
+    own router: the forced experts' gates are its own probabilities at
+    them, renormalized as ``route`` does.  With routing noise forced out,
+    this bounds the kernels' error over the whole model."""
+    from repro_torch.models import layers
+
+    path = cfg.matmul_policy or "auto"
+    atol = 0.0 if cfg.act_dtype == "int8" else LOGIT_ATOL
+    route = layers.route
+    choices = []
+
+    def recording(router, xf, c):
+        probs, vals, idx = route(router, xf, c)
+        choices.append(idx)
+        return probs, vals, idx
+
+    def forced(router, xf, c):
+        probs = route(router, xf, c)[0]
+        idx = next(replay)
+        vals = probs.gather(-1, idx)
+        return probs, vals / torch.clamp(vals.sum(-1, keepdim=True), 1e-9), idx
+
+    try:
+        layers.route = recording
+        ref = _prefill_logits(torch, served,
+                              cfg.with_(matmul_policy="fixed:ref"))
+        replay = iter(choices)
+        layers.route = forced
+        kern = _prefill_logits(torch, served, cfg)
+    finally:
+        layers.route = route
+    if next(replay, None) is not None or not choices:
+        raise AssertionError(f"{path}: the forced run made other MoE calls "
+                             f"than the {len(choices)} recorded")
+    if not (torch.isfinite(kern).all() and torch.isfinite(ref).all()):
+        raise AssertionError("non-finite prefill logits")
+    diff = float((kern - ref).abs().max())
+    if not diff <= atol:
+        raise AssertionError(f"teacher-forced prefill logits: {path} vs ref "
+                             f"max abs diff {diff} > {atol}")
+    return {"arch": cfg.name, "policy": path, "act_dtype": cfg.act_dtype,
+            "max_abs_diff": diff, "atol": atol,
+            "forced_moe_calls": len(choices),
+            "argmax_equal": bool(kern.argmax() == ref.argmax())}
+
+
 def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     """Prefill logits of one prompt through the path's kernels
     (``cfg.matmul_policy``) and through ``fixed:ref``, chunk by chunk as
@@ -553,8 +671,6 @@ def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     covers; its sub-layers are held to the reference by
     :func:`layer_check` instead, and the difference is reported."""
     from repro_torch.models import model as model_mod
-    from repro_torch.models.decode import (bind_serving_weights, init_cache,
-                                           prefill_chunk)
     from repro_torch.models.layers import route
 
     path = cfg.matmul_policy or "auto"
@@ -570,14 +686,9 @@ def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     model_mod.moe_ffn = recording
     try:
         for policy in (path, "fixed:ref"):
-            c = cfg.with_(matmul_policy=policy)
             routes[policy] = []
-            p = bind_serving_weights(served, c)
-            cache = init_cache(c, 1, 256, device=DEVICE)
-            for toks, pos, take in _prompt_chunks(torch, cfg.vocab_size):
-                cache, out = prefill_chunk(p, c, cache, toks, pos, take)
-            logits[policy] = out[0, :cfg.vocab_size].float()
-            del p, cache
+            logits[policy] = _prefill_logits(
+                torch, served, cfg.with_(matmul_policy=policy))
     finally:
         model_mod.moe_ffn = moe_ffn
     # (layer call, token) rows whose top-k expert set differs
@@ -756,9 +867,10 @@ def main() -> int:
              for name, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=usage)
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    bufs = (torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE),
+            torch.empty(ZERO_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE))
     cases = kernel_cases(ARCH)
-    rows = check_kernels(torch, cases, flush)
+    rows = check_kernels(torch, cases, bufs)
     checked = set(cases)
 
     cfg, served = build_model(torch, ARCH)
@@ -791,7 +903,7 @@ def main() -> int:
                    | selected_cases(ARCH, path_selection(ARCH, 4, "int8"),
                                     "int8"))
                   - checked)
-    rows += check_kernels(torch, more, flush)
+    rows += check_kernels(torch, more, bufs)
     checked |= set(more)
     run_path("autotuned", cfg, batch=4, lengths=lengths, new_tokens=16)
     emit("cross_check", **cross_check(torch, served, cfg))
@@ -810,7 +922,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cases = kernel_cases(MOE_ARCH)
-    rows += check_kernels(torch, cases, flush)
+    rows += check_kernels(torch, cases, bufs)
     checked |= set(cases)
     cfg, served = build_model(torch, MOE_ARCH)
     cfg8 = cfg.with_(act_dtype="int8")
@@ -821,6 +933,7 @@ def main() -> int:
         raise AssertionError(f"grouped_dequant launched {per_step} times per "
                              f"decode step, not {3 * cfg.n_layers}")
     emit("cross_check", **cross_check(torch, served, cfg))
+    emit("forced_check", **forced_check(torch, served, cfg))
     emit("layer_check", **layer_check(torch, served, cfg))
     w2a8 = cfg8.with_(matmul_policy="fixed:w2a8")
     run_path("moe_int8_w2a8", w2a8, MOE_ARCH, batch=4, lengths=short,
@@ -832,15 +945,16 @@ def main() -> int:
         torch, served, cfg, measurements=1)
     more = sorted(selected_cases(MOE_ARCH, path_selection(
         MOE_ARCH, 4, "bfloat16"), "bfloat16") - checked)
-    rows += check_kernels(torch, more, flush)
+    rows += check_kernels(torch, more, bufs)
     checked |= set(more)
     run_path("moe_autotuned", cfg, MOE_ARCH, batch=4, lengths=lengths,
              new_tokens=16)
     emit("cross_check", **cross_check(torch, served, cfg,
                                       routing_may_differ=True))
+    emit("forced_check", **forced_check(torch, served, cfg))
     emit("layer_check", **layer_check(torch, served, cfg))
     RECORD["autotune"] = tuned
-    del served, flush
+    del served, bufs
 
     kernels = []
     for name, (src, replaces, model, m, act) in SOURCES.items():

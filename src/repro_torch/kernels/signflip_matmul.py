@@ -2,7 +2,8 @@
 multiplier becomes a 3:1 mux of ``{+x, -x, 0}`` feeding an adder.
 
 Weights stream as int8 trits (one byte per weight); every product is a
-conditional add, subtract or skip, with f32 accumulation.
+conditional add, subtract or skip, with f32 accumulation (on the card, a
+product by a trit decoded to +1, 0 or -1 on the tensor cores, exact).
 
 :func:`signflip_matmul` is the CUDA kernel's wrapper
 (``csrc/signflip_matmul.cu``); :func:`signflip_matmul_torch` is its plain
@@ -38,8 +39,25 @@ def _kernel():
 
     fn = load("signflip_matmul").signflip_matmul_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p])
     return fn
+
+
+#: activation dtypes the kernel reads as they are (f32 splits into three
+#: bf16 terms, bf16 and int8 are one exact term); others are cast to f32
+_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``t`` and the row stride the kernel reads it at: rows in place when
+    each is contiguous and they do not overlap (the served trits are a view
+    of rows padded to 128 bytes), else a contiguous copy."""
+    rows, cols = t.shape
+    if t.stride(1) != 1 or (rows > 1 and t.stride(0) < cols):
+        t = t.contiguous()
+    return t, (t.stride(0) if rows > 1 else cols)
 
 
 def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
@@ -58,10 +76,14 @@ def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}, {tuple(w_t.shape)} {w_t.dtype}")
     B, K = x.shape
     O = w_t.shape[0]
-    xf = x.to(torch.float32).contiguous()
-    w_t = w_t.contiguous()
     out = torch.empty((B, O), dtype=torch.float32, device=x.device)
-    rc = _kernel()(xf.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, O, K,
+    if B == 0 or O == 0 or K == 0:
+        return out.zero_()
+    if x.dtype not in _X_KIND:
+        x = x.to(torch.float32)
+    (x, ldx), (w_t, ldw) = _rows(x), _rows(w_t)
+    rc = _kernel()(x.data_ptr(), _X_KIND[x.dtype], w_t.data_ptr(),
+                   out.data_ptr(), B, O, K, ldx, ldw,
                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"signflip_matmul kernel launch failed: CUDA error "

@@ -39,6 +39,24 @@ from repro_torch.models.decode import (bind_serving_weights, cache_len,
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
 
 
+def serving_matmul_problems(cfg: ModelConfig, batch_size: int,
+                            seq_len: int = 1
+                            ) -> list[tuple[str, int, int, int]]:
+    """The dense problems ``(role, M, K, N)`` a serving step of ``cfg``
+    dispatches: :func:`layer_matmul_problems` without, on a config whose
+    every layer's FFN is the MoE, the dense ``d_ff`` problems ``(M,
+    d_model, d_ff)`` and ``(M, d_ff, d_model)``.  Those expert matmuls
+    dispatch as grouped problems, so no step dispatches the dense ones
+    (the reference's engine lists and times them all the same)."""
+    probs = layer_matmul_problems(cfg, batch_size, seq_len)
+    if not cfg.n_experts or cfg.moe_every != 1:
+        return probs
+    M, d, f = batch_size * seq_len, cfg.d_model, cfg.d_ff
+    ffn_only = {("wi", M, d, f), ("wo", M, f, d)}
+    return [p for p in probs if p not in ffn_only
+            or p == ("wo", M, cfg.q_dim, d)]
+
+
 @dataclass
 class SamplerConfig:
     temperature: float = 0.0  # 0 → greedy
@@ -146,7 +164,8 @@ class DecodeEngine:
         probs = set()
         for bs, sl in ((self.B, 1), (1, self.prefill_chunk)):
             probs |= {((m, k, n), None)
-                      for _, m, k, n in layer_matmul_problems(self.cfg, bs, sl)}
+                      for _, m, k, n in serving_matmul_problems(self.cfg, bs,
+                                                                sl)}
             probs |= {((e, c, k, n), e)
                       for _, e, c, k, n in layer_grouped_matmul_problems(
                           self.cfg, bs, sl)}

@@ -208,6 +208,87 @@ def test_signflip_kernel_matches_plain(cuda, B, O, K):
     assert float((got - want).abs().max()) <= _atol(xt)
 
 
+def _signflip_once(x, w):
+    n0 = tsf.signflip_matmul.launches
+    got = tsf.signflip_matmul(x, w)
+    assert tsf.signflip_matmul.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], w.shape[0]) and got.dtype == torch.float32
+    return got
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_signflip_kernel_matches_plain_on_f32_activations(cuda, B, O, K):
+    """f32 x with bits below bf16's 8: the kernel's three-term split."""
+    x, w = _case(18, B, O, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    assert not torch.equal(xt.to(torch.bfloat16).float(), xt)
+    got = _signflip_once(xt, wt)
+    want = tsf.signflip_matmul_torch(xt, wt)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", SHAPES)
+def test_signflip_kernel_exact_on_int8_activations(cuda, B, O, K):
+    x, w = _case(19, B, O, K, int8=True)
+    want = torch.from_numpy(x.astype(np.int64) @ w.T.astype(np.int64))
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    got = _signflip_once(xt, wt)
+    assert torch.equal(got.cpu().to(torch.int64), want)
+
+
+# ragged M at every row tile and past it, N = 640, K not a multiple of the
+# 64-trit step: a multiple of 16 (16-byte copies) and not (byte loads)
+@pytest.mark.parametrize("K", [2512, 301])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_signflip_kernel_ragged(cuda, B, K, dtype):
+    x, w = _case(20, B, 640, K)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    xt = xt.to(getattr(torch, dtype))
+    got = _signflip_once(xt, wt)
+    want = tsf.signflip_matmul_torch(xt, wt)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", [(4, 640, 2560), (4, 2560, 6912),
+                                   (32, 2560, 6912), (9, 130, 301)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_signflip_kernel_is_deterministic(cuda, B, O, K, dtype):
+    """Split-K partials are summed in split order, with no float atomics:
+    two calls on the same inputs agree bit for bit."""
+    x, w = _case(21, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    wt = torch.from_numpy(w).to(cuda)
+    assert torch.equal(_signflip_once(xt, wt), _signflip_once(xt, wt))
+
+
+# the served trits are a view of rows padded to 128 bytes: read in place,
+# 16-byte copies where the stride allows them (with a partial last chunk
+# where K is ragged), byte loads where it does not
+@pytest.mark.parametrize("K,pad", [(6912, 128), (2500, 12), (301, 3), (50, 5)])
+def test_signflip_kernel_reads_padded_rows_in_place(cuda, K, pad):
+    x, w = _case(23, 4, 640, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    wp = torch.zeros((640, K + pad), dtype=torch.int8, device=cuda)
+    wp[:, :K] = torch.from_numpy(w).to(cuda)
+    wt = wp[:, :K]
+    assert not wt.is_contiguous()
+    got = _signflip_once(xt, wt)
+    assert torch.equal(got, _signflip_once(xt, wt.contiguous()))
+    want = tsf.signflip_matmul_torch(xt, wt)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+def test_signflip_never_runs_the_plain_version_on_the_card(cuda, monkeypatch):
+    def boom(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tsf, "signflip_matmul_torch", boom)
+    x, w = _case(22, 4, 640, 2560)
+    _signflip_once(torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda))
+
+
 @pytest.mark.parametrize("act", ["bfloat16", "int8"])
 def test_autotune_on_the_card_times_every_eligible_kernel(cuda, act, tmp_path):
     cache = tdispatch.AutotuneCache(path=str(tmp_path / "at.json"))

@@ -573,8 +573,33 @@ def test_engine_shape_universe_matches_jax(jax_trees, batch_size, chunk):
         batch_size=batch_size, max_len=MAX_LEN, prefill_chunk=chunk,
         device="cpu")
     universe = teng.matmul_shape_universe()
-    assert universe == jeng.matmul_shape_universe()
+    # the port drops the dense d_ff problems the reference lists for an MoE
+    # config: every FFN here is the MoE, whose matmuls are the grouped ones
+    cfg = t_smoke(ARCH)
+    d, f = cfg.d_model, cfg.d_ff
+    assert f not in (cfg.q_dim, cfg.kv_dim)
+    ffn_only = {(m, k, n) for m in (batch_size, chunk)
+                for k, n in ((d, f), (f, d))}
+    jax_universe = jeng.matmul_shape_universe()
+    assert ffn_only <= set(jax_universe)
+    assert universe == [s for s in jax_universe if s not in ffn_only]
     assert any(len(s) == 4 for s in universe)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "bitnet-b1.58-2b"])
+@pytest.mark.parametrize("batch_size,seq_len", [(1, 1), (4, 1), (1, 32)])
+def test_serving_problems_drop_only_moe_dense_ffn(arch, batch_size, seq_len):
+    """At full width: on phi3.5-moe the engine's dense problems are the
+    reference's without the d_ff ones (no dense d_ff problem is left); on
+    the dense bitnet they are the reference's, every one."""
+    tcfg, jcfg = t_config(arch), j_config(arch)
+    got = tengine.serving_matmul_problems(tcfg, batch_size, seq_len)
+    want = jdecode.layer_matmul_problems(jcfg, batch_size, seq_len)
+    M, d, f = batch_size * seq_len, tcfg.d_model, tcfg.d_ff
+    if tcfg.n_experts:
+        assert not {(M, d, f), (M, f, d)} & {p[1:] for p in got}
+        want = [p for p in want if p[1:] not in ((M, d, f), (M, f, d))]
+    assert got == want
 
 
 def test_autotune_shapes_times_grouped_kernels_at_grouped_shapes(jax_trees):
