@@ -38,8 +38,8 @@
 //    order, and stores it.  No float atomics and no global scratch: two
 //    calls on the same inputs are bitwise equal, and the partials never
 //    leave the chip.  Summing global partials in each tile's last block
-//    behind a counter instead cost 2.6 us a call at M = 4 and 10 us at
-//    M = 32 on the card (a chain of fences, an atomic and L2 round trips).
+//    behind a counter instead was slower on the card: it ends every call
+//    with a chain of fences, an atomic and L2 round trips.
 // 2. Asynchronous 16-byte copies.  A step is 4 or 8 KB of trits ([64][64],
 //    [32][128], [16][256] or [64][128]) and the same K range of x; both
 //    arrive by cp.async, 16 bytes a thread, into a ring of 4 slots (3 for
@@ -47,9 +47,9 @@
 //    step computes.  Trits stream past L1 (.cg); x, which every column
 //    tile reads again, is cached there too (.ca).  x streams beside the
 //    trits, so no block waits for its whole share of x before its first
-//    MMA.  Deeper rings were no faster on the card (3 to 10 slots within
-//    3%): the grid, not the loads in flight, sets the pace.  Each thread's
-//    copy sources are worked out once and advance by a step.
+//    MMA.  Deeper rings were no faster on the card: the grid, not the
+//    loads in flight, sets the pace.  Each thread's copy sources are
+//    worked out once and advance by a step.
 // 3. Tensor cores, swap-AB.  The weight tile is the 16-row A operand of
 //    mma.sync.m16n8k16 bf16 -> f32 (rows = output columns), x the 8-column
 //    B operand (columns = activation rows), so decode fills no padding
