@@ -82,11 +82,10 @@ Tolerances:
     the routing noise taken out.
 
 Timing: each kernel, its plain version and the library yardstick are timed
-call by call from a cold L2 (``time_cold``): a read of 128 MB before every
+call by call from a cold L2 by the timer autotune uses
+(``dispatch.cold_times_ms``, here the mean): a read of 128 MB before every
 call, the calls queued behind a device sleep so each event pair holds
-device time only.  ``signflip`` and ``grouped_dequant`` are also timed the
-way chip_smoke did before (64 MB zeroed, no head start) to show what that
-overstated.
+device time only.
 """
 
 from __future__ import annotations
@@ -115,15 +114,8 @@ LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1}}
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
-#: bytes read to flush the 50 MB L2 before each timed call
-FLUSH_BYTES = 128 << 20
-#: bytes the timer before the repair zeroed instead
-ZERO_FLUSH_BYTES = 64 << 20
-#: the kernels also timed the old way (the H100 SXM's SM clock tops out
-#: near 2 GHz, so a sleep of this many cycles a second lasts at least that)
-ZERO_FLUSH_TIMED = ("signflip", "grouped_dequant")
-SLEEP_CYCLES_PER_S = 2e9
 LOGIT_ATOL = 2.0 ** -3
 #: sub-layer outputs with the same input, kernels vs ``ref``, relative to
 #: the output's largest magnitude (see the module docstring)
@@ -194,57 +186,12 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_cold(torch, fn, reps: int, flush) -> float:
-    """Mean device time (ms) of ``fn()`` from a cold L2, as a decode step
-    finds each layer's weights.  Before every call the L2 is flushed by
-    reading ``flush`` (more than twice its size; a read leaves no dirty
-    lines for the call to write back), and the reps are queued behind a
-    device sleep longer than their enqueue takes, so the window between a
-    call's two events holds the call's device time only."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    flush.sum()
-    fn()
-    host_s = time.perf_counter() - t0
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * host_s + 1e-3)))
-    for start, end in events:
-        flush.sum()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
-def time_zero_flush(torch, fn, reps: int, zeroed) -> float:
-    """The timer before the repair, kept to measure what it overstates: 64
-    MB zeroed before each call (dirty lines the call's reads then evict),
-    the start event recorded before the call's host work."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        zeroed.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
-def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, bufs,
+def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
                 e: int | None = None):
     """Check one hand kernel against its plain version at one shape and
     time both and the library yardstick.  A grouped kernel takes ``e``
-    experts of ``m`` rows (the capacity).  ``bufs``: the buffer read to
-    flush the L2 and the one the old timer zeroed."""
+    experts of ``m`` rows (the capacity).  ``flush``: the buffer read to
+    flush the L2."""
     from repro_torch.core import encoding
     from repro_torch.kernels import dequant_matmul as deq
     from repro_torch.kernels import grouped_matmul as gm
@@ -252,9 +199,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, bufs,
     from repro_torch.kernels import signflip_matmul as sf
     from repro_torch.kernels import tl2_matmul as tl2
     from repro_torch.kernels import w2a8_matmul as w8
-    from repro_torch.kernels.dispatch import TernaryWeight
+    from repro_torch.kernels.dispatch import TernaryWeight, cold_times_ms
 
-    flush, zeroed = bufs
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 7 * m + k + n)
     lead = () if e is None else (e,)
@@ -326,6 +272,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, bufs,
         plain = lambda: sf.signflip_matmul_torch(x, wt)         # noqa: E731
         wbytes = wt.numel()
         ops = m * n * k
+        rate = BF16_OPS_PER_S       # the adds run on the bf16 tensor cores
     elif name not in GROUPED_KERNELS:
         raise KeyError(name)
     wd = trits.to(torch.bfloat16).transpose(-1, -2)     # decoded [.., K, N]
@@ -355,15 +302,15 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, bufs,
     nbytes = x.numel() * x.element_size() + wbytes + experts * m * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
+
+    def mean_ms(fn, reps):
+        times = cold_times_ms(fn, reps, flush)
+        return sum(times) / len(times)
+
     row = {"kernel": name, "E": e, "M": m, "K": k, "N": n, "act": act,
            "max_abs_err": err, "tol": tol,
-           "ms": time_cold(torch, kernel, 20, flush),
-           "plain_ms": time_cold(torch, plain, 5, flush),
-           "library_ms": time_cold(torch, library, 20, flush),
-           **({"zero_flush_ms": time_zero_flush(torch, kernel, 20, zeroed),
-               "zero_flush_library_ms": time_zero_flush(torch, library, 20,
-                                                        zeroed)}
-              if name in ZERO_FLUSH_TIMED else {}),
+           "ms": mean_ms(kernel, 20), "plain_ms": mean_ms(plain, 5),
+           "library_ms": mean_ms(library, 20),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
@@ -429,7 +376,7 @@ def kernel_cases(model: str) -> list[tuple]:
     return sorted(cases)
 
 
-def check_kernels(torch, cases, bufs) -> list[dict]:
+def check_kernels(torch, cases, flush) -> list[dict]:
     rows = []
     for model, name, m, act in cases:
         if name in GROUPED_KERNELS:
@@ -437,7 +384,7 @@ def check_kernels(torch, cases, bufs) -> list[dict]:
         else:
             shapes = [(None, k, n) for k, n in LAYER_KN[model]]
         for e, k, n in shapes:
-            row = kernel_case(torch, name, m, k, n, act, bufs, e=e)
+            row = kernel_case(torch, name, m, k, n, act, flush, e=e)
             row["model"] = model
             emit("kernel", **row)
             rows.append(row)
@@ -456,8 +403,6 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
            if r["kernel"] == name and r["M"] == m and r["act"] == act
            and r["model"] == model}
     keys = ["ms", "plain_ms", "library_ms"]
-    keys += [k for k in ("zero_flush_ms", "zero_flush_library_ms")
-             if all(k in r for r in sel.values())]
     tot = {key: sum(sel[kn][key] * c for kn, c in counts.items())
            for key in keys}
     t_bytes = sum(sel[kn]["bytes"] * c for kn, c in counts.items()) \
@@ -849,7 +794,7 @@ def main() -> int:
         os.unlink(cache_path)
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_path
     from repro_torch.kernels import _build
-    from repro_torch.kernels.dispatch import get_autotune_cache
+    from repro_torch.kernels.dispatch import FLUSH_BYTES, get_autotune_cache
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -867,10 +812,9 @@ def main() -> int:
              for name, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=usage)
 
-    bufs = (torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE),
-            torch.empty(ZERO_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE))
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cases = kernel_cases(ARCH)
-    rows = check_kernels(torch, cases, bufs)
+    rows = check_kernels(torch, cases, flush)
     checked = set(cases)
 
     cfg, served = build_model(torch, ARCH)
@@ -903,7 +847,7 @@ def main() -> int:
                    | selected_cases(ARCH, path_selection(ARCH, 4, "int8"),
                                     "int8"))
                   - checked)
-    rows += check_kernels(torch, more, bufs)
+    rows += check_kernels(torch, more, flush)
     checked |= set(more)
     run_path("autotuned", cfg, batch=4, lengths=lengths, new_tokens=16)
     emit("cross_check", **cross_check(torch, served, cfg))
@@ -922,7 +866,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cases = kernel_cases(MOE_ARCH)
-    rows += check_kernels(torch, cases, bufs)
+    rows += check_kernels(torch, cases, flush)
     checked |= set(cases)
     cfg, served = build_model(torch, MOE_ARCH)
     cfg8 = cfg.with_(act_dtype="int8")
@@ -945,7 +889,7 @@ def main() -> int:
         torch, served, cfg, measurements=1)
     more = sorted(selected_cases(MOE_ARCH, path_selection(
         MOE_ARCH, 4, "bfloat16"), "bfloat16") - checked)
-    rows += check_kernels(torch, more, bufs)
+    rows += check_kernels(torch, more, flush)
     checked |= set(more)
     run_path("moe_autotuned", cfg, MOE_ARCH, batch=4, lengths=lengths,
              new_tokens=16)
@@ -954,7 +898,7 @@ def main() -> int:
     emit("forced_check", **forced_check(torch, served, cfg))
     emit("layer_check", **layer_check(torch, served, cfg))
     RECORD["autotune"] = tuned
-    del served, bufs
+    del served, flush
 
     kernels = []
     for name, (src, replaces, model, m, act) in SOURCES.items():

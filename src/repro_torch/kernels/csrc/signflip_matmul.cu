@@ -77,9 +77,10 @@
 // Ragged edges are masked: columns past N, rows past M and k past K load
 // as zero (cp.async src-size 0 or less than 16), and what lies past N or M
 // is not stored.  Rows are read at their strides, so the served trits'
-// padded rows need no copy.  The 16-byte copies need 16-byte aligned rows
-// (aligned pointers and strides, as at every served shape); otherwise the
-// same slots are filled by plain byte loads.
+// padded rows need no copy.  The 16-byte copies need 16-byte aligned rows:
+// every served shape has them (K = 2560, 6912, 4096, 6400; trit rows
+// padded to a multiple of 640), the entry refuses any other, and the
+// wrapper copies such an input to a 16-byte row stride first.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -136,25 +137,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // 16 bytes to shared memory, of which the first `valid` come from src and
-// the rest are zero: cp.async when rows are 16-byte aligned, else bytes.
-// Trits stream past L1 (.cg); x, which every column tile reads again,
-// is kept there too (.ca), so blocks of one split on an SM share it.
-template <bool ALIGNED, bool L1 = false>
+// the rest are zero.  Trits stream past L1 (.cg); x, which every column
+// tile reads again, is kept there too (.ca), so blocks of one split on an
+// SM share it.
+template <bool L1 = false>
 __device__ __forceinline__ void copy16(void* dst, const void* src, int valid) {
-  if constexpr (ALIGNED) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    if constexpr (L1)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
-                   :: "r"(d), "l"(src), "r"(valid));
-    else
-      asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
-                   :: "r"(d), "l"(src), "r"(valid));
-  } else {
-    const uint8_t* s = static_cast<const uint8_t*>(src);
-    uint8_t* o = static_cast<uint8_t*>(dst);
-#pragma unroll 1
-    for (int i = 0; i < 16; ++i) o[i] = i < valid ? s[i] : uint8_t(0);
-  }
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (L1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid));
+  else
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -223,7 +217,7 @@ __device__ __forceinline__ void load_b(const unsigned char* row, int s,
 // column tile form one cluster; with S > 1 each leaves its partial tile in
 // shared memory and sums a 1 / S share of the tile over all S, in split
 // order.
-template <int KIND, int NT, int WN, int RT, bool ALIGNED>
+template <int KIND, int NT, int WN, int RT>
 __global__ void __launch_bounds__(THREADS, 4)
 signflip_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
                 float* __restrict__ out, int M, int N, int K, long long ldx,
@@ -277,7 +271,7 @@ signflip_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < STEP / 16 / THREADS; ++i) {
       const int valid = o0 + wr + i * WROWS < N ? wv : 0;
-      copy16<ALIGNED>(dst + wdst + i * WROWS * SK,
+      copy16(dst + wdst + i * WROWS * SK,
                       valid ? wsrc + i * WROWS * ldw + dk : w, valid);
     }
     const int xv = max(0, min(EPC, K - xk0 - dk)) * int(sizeof(T));
@@ -285,7 +279,7 @@ signflip_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
     for (int i = 0; i < (MT + XROWS - 1) / XROWS; ++i) {
       if (MT % XROWS != 0 && xr + i * XROWS >= MT) break;
       const int valid = m0 + xr + i * XROWS < M ? xv : 0;
-      copy16<ALIGNED, true>(dst + xdst + i * XROWS * XROW,
+      copy16<true>(dst + xdst + i * XROWS * XROW,
                             valid ? xsrc + i * XROWS * ldx + dk : x, valid);
     }
   };
@@ -454,7 +448,7 @@ struct Layout { int wn, rt; };
 constexpr Layout kLayouts[] = {{2, 2}, {4, 1}, {2, 1}, {1, 1}};
 constexpr int kNumLayouts = 4;
 
-template <int KIND, int NT, int WN, int RT, bool ALIGNED>
+template <int KIND, int NT, int WN, int RT>
 struct Config {
   static constexpr int SK = 64 * (4 / WN);
   static constexpr size_t SMEM =
@@ -466,7 +460,7 @@ struct Config {
   static int resident() {
     static int n = -1;
     if (n < 0) {
-      auto kernel = signflip_kernel<KIND, NT, WN, RT, ALIGNED>;
+      auto kernel = signflip_kernel<KIND, NT, WN, RT>;
       int r = 0;
       if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(SMEM)) != cudaSuccess ||
@@ -494,20 +488,20 @@ struct Config {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, signflip_kernel<KIND, NT, WN, RT, ALIGNED>, x,
+    return cudaLaunchKernelEx(&cfg, signflip_kernel<KIND, NT, WN, RT>, x,
                               static_cast<const int8_t*>(w),
                               static_cast<float*>(out), M, N, K, ldx, ldw,
                               static_cast<int>(grid.y));
   }
 };
 
-template <int KIND, int NT, bool ALIGNED>
+template <int KIND, int NT>
 int resident(int layout) {
   switch (layout) {
-    case 0: return Config<KIND, NT, 2, 2, ALIGNED>::resident();
-    case 1: return Config<KIND, NT, 4, 1, ALIGNED>::resident();
-    case 2: return Config<KIND, NT, 2, 1, ALIGNED>::resident();
-    default: return Config<KIND, NT, 1, 1, ALIGNED>::resident();
+    case 0: return Config<KIND, NT, 2, 2>::resident();
+    case 1: return Config<KIND, NT, 4, 1>::resident();
+    case 2: return Config<KIND, NT, 2, 1>::resident();
+    default: return Config<KIND, NT, 1, 1>::resident();
   }
 }
 
@@ -516,7 +510,7 @@ int resident(int layout) {
 // widest layout (the least x staged per trit) that reaches that within
 // one wave of resident blocks wins; where none does, the layout with the
 // most blocks in one wave; where none fits one wave, the fewest waves.
-template <int KIND, int NT, bool ALIGNED>
+template <int KIND, int NT>
 cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
                 long long ldx, long long ldw, int sms, cudaStream_t stream) {
   const long want = 2L * sms;
@@ -529,7 +523,7 @@ cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
     int splits = 1;
     while (splits < MAX_SPLITS && 2 * splits <= ksteps && tiles * splits < want)
       splits *= 2;
-    const long slots = long(resident<KIND, NT, ALIGNED>(l)) * sms;
+    const long slots = long(resident<KIND, NT>(l)) * sms;
     if (slots < 1) continue;
     const long blocks = tiles * splits;
     const long waves = (blocks + slots - 1) / slots;
@@ -545,19 +539,11 @@ cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
   const int bn = 16 * kLayouts[best].wn * kLayouts[best].rt;
   const dim3 grid((N + bn - 1) / bn, best_splits, (M + 8 * NT - 1) / (8 * NT));
   switch (best) {
-    case 0: return Config<KIND, NT, 2, 2, ALIGNED>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
-    case 1: return Config<KIND, NT, 4, 1, ALIGNED>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
-    case 2: return Config<KIND, NT, 2, 1, ALIGNED>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
-    default: return Config<KIND, NT, 1, 1, ALIGNED>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
+    case 0: return Config<KIND, NT, 2, 2>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
+    case 1: return Config<KIND, NT, 4, 1>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
+    case 2: return Config<KIND, NT, 2, 1>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
+    default: return Config<KIND, NT, 1, 1>::launch(grid, x, w, out, M, N, K, ldx, ldw, stream);
   }
-}
-
-template <int KIND, bool ALIGNED>
-cudaError_t run_nt(const void* x, const void* w, void* out, int M, int N,
-                   int K, long long ldx, long long ldw, int sms, cudaStream_t s) {
-  if (M <= 8) return run<KIND, 1, ALIGNED>(x, w, out, M, N, K, ldx, ldw, sms, s);
-  if (M <= 16) return run<KIND, 2, ALIGNED>(x, w, out, M, N, K, ldx, ldw, sms, s);
-  return run<KIND, 4, ALIGNED>(x, w, out, M, N, K, ldx, ldw, sms, s);
 }
 
 template <int KIND>
@@ -566,12 +552,13 @@ cudaError_t run_kind(const void* x, const void* w, void* out, int M, int N,
                      cudaStream_t s) {
   // 16-byte copies need every row, and so every 16-byte chunk of it, to
   // start 16-byte aligned
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                       ldx * long(sizeof(typename XType<KIND>::T)) % 16 == 0 &&
-                       ldw % 16 == 0;
-  return aligned ? run_nt<KIND, true>(x, w, out, M, N, K, ldx, ldw, sms, s)
-                 : run_nt<KIND, false>(x, w, out, M, N, K, ldx, ldw, sms, s);
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      ldx * long(sizeof(typename XType<KIND>::T)) % 16 != 0 || ldw % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (M <= 8) return run<KIND, 1>(x, w, out, M, N, K, ldx, ldw, sms, s);
+  if (M <= 16) return run<KIND, 2>(x, w, out, M, N, K, ldx, ldw, sms, s);
+  return run<KIND, 4>(x, w, out, M, N, K, ldx, ldw, sms, s);
 }
 
 }  // namespace
@@ -579,8 +566,8 @@ cudaError_t run_kind(const void* x, const void* w, void* out, int M, int N,
 // x: [M, K] with row stride ldx (elements), x_kind 0 = f32, 1 = bf16,
 // 2 = int8; w: [N, K] int8 trits in {-1, 0, 1} with row stride ldw (bytes,
 // as the served base-3 bytes' 128-byte row padding leaves them); out: [M, N]
-// f32, unscaled.  Launches on `stream`; returns the launch error (0 on
-// success).
+// f32, unscaled.  Rows start 16-byte aligned (pointers and strides).
+// Launches on `stream`; returns the launch error (0 on success).
 extern "C" int signflip_matmul_f32(const void* x, int x_kind, const void* w,
                                    void* out, int M, int N, int K,
                                    long long ldx, long long ldw, void* stream) {

@@ -789,44 +789,60 @@ def grouped_ternary_matmul(x: torch.Tensor, w: GroupedTernaryWeight, *,
 # ---------------------------------------------------------------------------
 
 
-#: bytes zeroed before each timed call on the card: more than the H100's
-#: 50 MB L2, so each call reads its weights from HBM as a decode step does
-#: (one layer's weights are a few MB; a step streams all 30 layers')
-_FLUSH_BYTES = 64 << 20
-#: device cycles (about 20 ms) the card sleeps before a timed series, so the
-#: host has queued the whole series before the card reaches it and no host
-#: launch gap falls between a call's two events
-_QUEUE_AHEAD_CYCLES = 40_000_000
+#: bytes read to flush the L2 before each timed call on the card: more than
+#: twice the H100's 50 MB L2, so each call reads its weights from HBM as a
+#: decode step does (one layer's weights are a few MB; a step streams all
+#: 30 layers'), and a read, unlike a write, leaves no dirty lines for the
+#: timed call to write back
+FLUSH_BYTES = 128 << 20
+#: device cycles a second, to size the sleep that queues a timed series (the
+#: H100 SXM's SM clock tops out near 2 GHz, so a sleep of this many cycles
+#: lasts at least a second)
+SLEEP_CYCLES_PER_S = 2e9
+
+
+def cold_times_ms(fn: Callable[[], object], reps: int,
+                  flush: torch.Tensor) -> list[float]:
+    """Device time (ms) of each of ``reps`` calls of ``fn()`` on the card,
+    each from a cold L2, as a decode step finds each layer's weights.
+    Before every call the L2 is flushed by reading ``flush`` (a CUDA
+    buffer of :data:`FLUSH_BYTES`), and the series is queued behind a
+    device sleep longer than its enqueue takes, so the window between a
+    call's two events holds the call's device time only: no write-back of
+    the flush, no host work of ``fn``'s wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.sum()
+    fn()
+    host_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * host_s + 1e-3)))
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
 
 
 def _time_us(fn: Callable[[], torch.Tensor], reps: int,
-             device: torch.device) -> float:
-    """Median time of ``fn()`` in µs over ``reps`` calls after one warm
-    call.  On the card each call is timed alone by CUDA events, with the L2
-    flushed before it and the series queued behind a device sleep, so the
-    time is the call's device time from a cold L2 without host gaps.  On
-    the CPU, the host clock around each call."""
+             device: torch.device, flush: torch.Tensor | None) -> float:
+    """Median time of ``fn()`` in µs over ``reps`` calls: on the card each
+    call's device time from a cold L2 (:func:`cold_times_ms`, flushing
+    with ``flush``); on the CPU, the host clock around each call after one
+    warm call."""
+    if device.type == "cuda":
+        return float(np.median(cold_times_ms(fn, reps, flush))) * 1e3
     fn()
     times = []
-    if device.type == "cuda":
-        flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=device)
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(reps)]
-        torch.cuda.synchronize(device)
-        torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
-        for start, end in events:
-            flush.zero_()
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize(device)
-        times = [start.elapsed_time(end) * 1e3 for start, end in events]
-    else:
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e6)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
     return float(np.median(times))
 
 
@@ -847,8 +863,11 @@ def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
     ``{kernel_name: µs}``.
 
     Inputs are made from ``seed``: int8 or normal activations, a random
-    base-3 packed weight.  Three deliberate differences from the
-    reference's ``autotune``:
+    base-3 packed weight with the serving artifact's rows padded to a
+    multiple of 128 bytes, so each kernel reads the weight laid out as it
+    does in serving (the trits' rows then start 16-byte aligned, as the
+    ``signflip`` kernel needs; unpadded, it would time the wrapper's copy
+    too).  Four deliberate differences from the reference's ``autotune``:
 
     * the clock starts after each kernel's weight encoding (trits, bytes,
       keys or words) is derived: the port's serving path derives it once per
@@ -860,9 +879,11 @@ def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
       card stops the run instead of dropping out of the measurements;
     * on the card a time is the median of ``reps`` (default 20) single-call
       device times, each from a cold L2 and without host launch gaps
-      (:func:`_time_us`), where the reference divides the wall time of 3
-      back-to-back calls by 3: close winners then flip less with the
-      host's noise."""
+      (:func:`cold_times_ms`), where the reference divides the wall time
+      of 3 back-to-back calls by 3: close winners then flip less with the
+      host's noise;
+    * the weight is laid out as served (above), where the reference packs
+      it unpadded."""
     if reps < 1:
         raise ValueError(f"reps must be >= 1, got {reps}")
     dev = resolve_device(device)
@@ -885,16 +906,20 @@ def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
                                           dtype=np.int8))
     x = x.to(dev)
     packed = encoding.pack_base3(trits.to(dev))
+    packed = torch.nn.functional.pad(packed, (0, (-packed.shape[-1]) % 128))
     del trits
     w = (TernaryWeight if e is None else GroupedTernaryWeight).from_packed(
         packed, 1.0, k, mu=mu)
     names = kernels or [s.name for s in eligible_kernels(m, k, n, act_dtype, e)]
+    flush = (torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+             if dev.type == "cuda" else None)
     results: dict[str, float] = {}
     for name in names:
         spec = get_kernel(name)
         if not spec.supports(m, k, n, act_dtype, e):
             continue
-        results[name] = _time_us(lambda run=spec.run: run(x, w, mu), reps, dev)
+        results[name] = _time_us(lambda run=spec.run: run(x, w, mu), reps, dev,
+                                 flush)
         cache.record(m, k, n, act_dtype, backend, name, results[name], mu=mu,
                      e=e)
     if save and results:

@@ -51,13 +51,21 @@ _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``t`` and the row stride the kernel reads it at: rows in place when
-    each is contiguous and they do not overlap (the served trits are a view
-    of rows padded to 128 bytes), else a contiguous copy."""
+    """``t`` and the row stride (in elements) the kernel reads it at.  The
+    kernel copies 16 bytes at a time, so every row must start 16-byte
+    aligned.  Rows are read in place where each is contiguous, they do not
+    overlap and they are aligned (the served trits are a view of rows
+    padded to a multiple of 640 bytes); otherwise they are copied to a
+    stride rounded up to 16 bytes, whose padding the kernel never reads."""
     rows, cols = t.shape
-    if t.stride(1) != 1 or (rows > 1 and t.stride(0) < cols):
-        t = t.contiguous()
-    return t, (t.stride(0) if rows > 1 else cols)
+    align = 16 // t.element_size()
+    padded = -(-cols // align) * align
+    ld = t.stride(0) if rows > 1 else padded    # one row: any stride will do
+    if t.stride(1) != 1 or ld < cols or ld % align or t.data_ptr() % 16:
+        buf = t.new_empty((rows, padded))
+        buf[:, :cols] = t
+        t, ld = buf[:, :cols], padded
+    return t, ld
 
 
 def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:

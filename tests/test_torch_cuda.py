@@ -238,7 +238,8 @@ def test_signflip_kernel_exact_on_int8_activations(cuda, B, O, K):
 
 
 # ragged M at every row tile and past it, N = 640, K not a multiple of the
-# 64-trit step: a multiple of 16 (16-byte copies) and not (byte loads)
+# 64-trit step: a multiple of 16 (rows read in place) and not (rows copied
+# by the wrapper to a 16-byte stride)
 @pytest.mark.parametrize("K", [2512, 301])
 @pytest.mark.parametrize("B", [1, 3, 8, 9, 33])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -263,9 +264,9 @@ def test_signflip_kernel_is_deterministic(cuda, B, O, K, dtype):
     assert torch.equal(_signflip_once(xt, wt), _signflip_once(xt, wt))
 
 
-# the served trits are a view of rows padded to 128 bytes: read in place,
-# 16-byte copies where the stride allows them (with a partial last chunk
-# where K is ragged), byte loads where it does not
+# the served trits are a view of rows padded to 128 bytes: read in place
+# where the stride is a multiple of 16 bytes (with a partial last chunk
+# where K is ragged), copied by the wrapper to such a stride where not
 @pytest.mark.parametrize("K,pad", [(6912, 128), (2500, 12), (301, 3), (50, 5)])
 def test_signflip_kernel_reads_padded_rows_in_place(cuda, K, pad):
     x, w = _case(23, 4, 640, K)
@@ -278,6 +279,36 @@ def test_signflip_kernel_reads_padded_rows_in_place(cuda, K, pad):
     assert torch.equal(got, _signflip_once(xt, wt.contiguous()))
     want = tsf.signflip_matmul_torch(xt, wt)
     assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_signflip_kernel_on_nonfinite_activations(cuda, dtype):
+    """+-inf and NaN in x.  The kernel multiplies x by trits decoded to +1,
+    0 and -1, so it gives IEEE's x @ w^T: a zero trit against an infinite
+    x gives 0 * inf = NaN, and a NaN reaches every column.  The plain
+    version's select skips zero trits instead; this pins the difference."""
+    x, w = _case(24, 4, 640, 2560)
+    x[0, 5] = np.inf
+    x[1, 17], x[1, 900] = -np.inf, np.inf
+    x[2, 100] = np.nan
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    wt = torch.from_numpy(w).to(cuda)
+    got = _signflip_once(xt, wt).cpu()
+    xd = xt.cpu().double()
+    want = (xd[:, None, :] * torch.from_numpy(w).double()[None]).sum(-1)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin].double() - want[fin]).abs().max()) <= \
+        _atol(torch.nan_to_num(xt, 0.0, 0.0, 0.0))
+    # every kind occurs, and the plain select departs only on rows 0-2
+    plain = tsf.signflip_matmul_torch(xt, wt).cpu()
+    assert torch.isnan(got[:3]).all(-1).tolist() == [False, False, True]
+    assert torch.isposinf(got[0]).any() and torch.isneginf(got[0]).any()
+    assert torch.isnan(got[0]).any() and not torch.isnan(plain[0]).any()
+    assert torch.isfinite(got[3]).all()
+    assert float((got[3] - plain[3]).abs().max()) <= _atol(xt[3:].float())
 
 
 def test_signflip_never_runs_the_plain_version_on_the_card(cuda, monkeypatch):

@@ -260,6 +260,42 @@ def test_plain_signflip_matches_pallas(B, O, K):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(x))
 
 
+# (rows, cols, dtype, row stride of the view): the signflip kernel copies 16
+# bytes at a time, so it is handed rows that each start 16-byte aligned
+@pytest.mark.parametrize("rows,cols,dtype,stride", [
+    (640, 6912, torch.int8, 7040),      # served trits: rows padded to 128 B
+    (640, 50, torch.int8, 55), (3, 50, torch.int8, 50),
+    (4, 2560, torch.bfloat16, 2560), (4, 301, torch.float32, 301),
+    (1, 301, torch.float32, 301)])
+def test_signflip_rows_read_in_place_only_where_aligned(rows, cols, dtype,
+                                                         stride):
+    t = torch.arange(rows * stride).reshape(rows, stride).to(dtype)[:, :cols]
+    got, ld = tsf._rows(t)
+    assert torch.equal(got, t) and got.stride(1) == 1
+    assert ld * t.element_size() % 16 == 0 and got.data_ptr() % 16 == 0
+    assert rows == 1 or got.stride(0) == ld
+    aligned = rows == 1 or stride * t.element_size() % 16 == 0
+    assert (got.data_ptr() == t.data_ptr()) == aligned
+
+
+def test_autotune_times_the_weight_laid_out_as_served(monkeypatch):
+    """Autotune's base-3 rows are padded to 128 bytes as the serving
+    artifact's are, so the trits' rows start every 640 bytes."""
+    strides = []
+    spec = tdispatch.REGISTRY["signflip"]
+
+    def run(x2, w, mu):
+        strides.append(w.trits().stride(0))
+        return spec.run(x2, w, mu)
+
+    monkeypatch.setitem(tdispatch.REGISTRY, "signflip",
+                        dataclasses.replace(spec, run=run))
+    cache = tdispatch.AutotuneCache(path="unused.json")
+    us = tdispatch.autotune(2, 20, 9, "float32", kernels=["signflip"], reps=1,
+                            device="cpu", cache=cache, save=False)
+    assert set(us) == {"signflip"} and strides and set(strides) == {640}
+
+
 @pytest.mark.parametrize("B,O,K", RAGGED + [(4, 64, 2560), (2, 16, 6912)])
 def test_plain_w2a8_exact_against_int64_product(B, O, K):
     x, w = _case(23, B, O, K, int8=True)
