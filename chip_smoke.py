@@ -212,9 +212,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
                         dtype=torch.bfloat16)
     trits = torch.randint(-1, 2, (*lead, n, k), generator=g, device=dev,
                           dtype=torch.int8)
-    # base-3 bytes with the serving artifact's 128-byte row padding
-    packed = encoding.pack_base3(trits)
-    packed = torch.nn.functional.pad(packed, (0, (-packed.shape[-1]) % 128))
+    # base-3 bytes with the serving artifact's row padding
+    packed = encoding.pad_packed_rows(encoding.pack_base3(trits))
     rate = F32_OPS_PER_S
     experts = e or 1
     packed_bytes = experts * n * -(-k // encoding.TRITS_PER_BYTE)

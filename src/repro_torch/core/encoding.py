@@ -105,6 +105,20 @@ def pack_base3(w_t: torch.Tensor) -> torch.Tensor:
     return (grp * powers).sum(-1).to(torch.uint8)
 
 
+#: the serving artifact pads each row of base-3 bytes to a multiple of this
+#: many bytes, so the trits a row decodes to start every 640 bytes
+PACKED_ROW_BYTES = 128
+
+
+def pad_packed_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Base-3 bytes ``[..., ceil(n/5)]`` with each row zero-padded to a
+    multiple of :data:`PACKED_ROW_BYTES`, as the serving artifact stores
+    them.  The padding decodes past the logical width, where the kernels
+    never read."""
+    pad = (-packed.shape[-1]) % PACKED_ROW_BYTES
+    return torch.nn.functional.pad(packed, (0, pad)) if pad else packed
+
+
 @functools.lru_cache(maxsize=None)
 def _base3_decode_table() -> np.ndarray:
     """[256, 5] int8 decode LUT: byte value → 5 trits."""

@@ -905,8 +905,7 @@ def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
     trits = torch.from_numpy(rng.integers(-1, 2, size=(*lead, n, k),
                                           dtype=np.int8))
     x = x.to(dev)
-    packed = encoding.pack_base3(trits.to(dev))
-    packed = torch.nn.functional.pad(packed, (0, (-packed.shape[-1]) % 128))
+    packed = encoding.pad_packed_rows(encoding.pack_base3(trits.to(dev)))
     del trits
     w = (TernaryWeight if e is None else GroupedTernaryWeight).from_packed(
         packed, 1.0, k, mu=mu)

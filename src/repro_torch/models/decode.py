@@ -52,10 +52,7 @@ def _pack_matrix(w: torch.Tensor):
     The padding bytes decode past the logical width, where the kernels
     never read."""
     w_t, scale = ternarize(w)
-    packed = encoding.pack_base3(w_t.T)
-    pad = (-packed.shape[-1]) % 128
-    if pad:
-        packed = torch.nn.functional.pad(packed, (0, pad))
+    packed = encoding.pad_packed_rows(encoding.pack_base3(w_t.T))
     return packed, scale.to(torch.bfloat16)
 
 
