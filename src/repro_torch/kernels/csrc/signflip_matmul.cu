@@ -11,10 +11,10 @@
 //
 // What bounds it on the H100.  The trits stream at 8 bits per weight: one
 // bitnet layer (K, N) in {(2560, 2560) x2, (2560, 640) x2, (2560, 6912) x2,
-// (6912, 2560)} is 69.5 MB, 21 us at 3.35 TB/s.  At M = 4 that is the bound
-// (the largest call, 17.7 MB, is 5.3 us); at M = 32 the function's M*N*K
-// adds over the 67 TFLOP/s f32 rate (8.4 us for the largest call) bound it
-// on paper, and the bf16 tensor cores do them far faster.  Keeping 3.35
+// (6912, 2560)} is 69.5 MB, 21 us at 3.35 TB/s.  That is the bound at M = 4
+// (the largest call, 17.7 MB, is 5.3 us) and at M = 32 (5.6 us): the
+// function's M*N*K adds, run on the bf16 tensor cores at 989 TFLOP/s, take
+// 0.6 us for the largest call at M = 32.  Keeping 3.35
 // TB/s in flight takes about 25-30 KB of outstanding loads per SM.  The
 // first design lost 148x to that bound: 5-54 blocks on 132 SMs, byte-wide
 // loads with 32 in flight, scalar select-and-add.  This one:
