@@ -116,6 +116,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+#: shared memory: 128 bytes a clock an SM, 132 SMs at 1.755 GHz (the
+#: ceiling of lut_gather's table reads, stated in its source note)
+SMEM_BYTES_PER_S = 128 * 132 * 1.755e9
 LOGIT_ATOL = 2.0 ** -3
 #: sub-layer outputs with the same input, kernels vs ``ref``, relative to
 #: the output's largest magnitude (see the module docstring)
@@ -234,19 +237,32 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
     else:
         w = TernaryWeight.from_packed(packed, 1.0, k)
         mu = w.mu
+    ceiling = None
     if name in ("lut_gather", "lut_onehot"):
+        # as served: x of the logical width, the weight's keys view (rows
+        # padded to 16 bytes), neither copied
         keys = w.keys()
         G = keys.shape[1]
-        xk = torch.nn.functional.pad(x, (0, G * mu - k))
-        fn, plain_fn = ((lut.lut_matmul, lut.lut_matmul_torch)
-                        if name == "lut_gather" else
-                        (lut.lut_onehot_matmul, lut.lut_onehot_matmul_torch))
-        kernel = lambda: fn(xk, keys, mu)                       # noqa: E731
-        plain = lambda: plain_fn(xk, keys, mu)                  # noqa: E731
-        wbytes = keys.numel() * keys.element_size()
+        onehot = name == "lut_onehot"
+        fn, plain_fn = ((lut.lut_onehot_matmul, lut.lut_onehot_matmul_torch)
+                        if onehot else
+                        (lut.lut_matmul, lut.lut_matmul_torch))
+        kernel = lambda: fn(x, keys, mu)                        # noqa: E731
+        plain = lambda: plain_fn(x, keys, mu)                   # noqa: E731
+        wbytes = n * G * keys.element_size()
         # whichever fetch computes it: the table build, then one add per
         # key and row
         ops = m * G * encoding.table_size(mu) + m * n * G
+        if onehot:
+            # the adds run on the bf16 tensor cores; the design's ceiling:
+            # one m16n8k16 MMA (4096 flops) per group, 16 columns and 8
+            # (row, bf16 term) slots, 3 terms a row, at the peak rate
+            rate = BF16_OPS_PER_S
+            mmas = -(-n // 16) * G * -(-3 * m // 8)
+            ceiling = ("tensor cores", mmas * 4096 / BF16_OPS_PER_S * 1e3)
+        else:
+            # the design's ceiling: one 4-byte table read per key and row
+            ceiling = ("shared memory", 4 * m * n * G / SMEM_BYTES_PER_S * 1e3)
     elif name == "tl2":
         words = w.tl2()
         kernel = lambda: tl2.tl2_matmul(x, words, k)            # noqa: E731
@@ -313,6 +329,10 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
+    if ceiling is not None:
+        row["ceiling_by"], row["ceiling_ms"] = ceiling
+        row["grid"] = lut.launch_grid(name == "lut_onehot", x.dtype, m, n, k,
+                                      G)
     return row
 
 
@@ -358,6 +378,8 @@ def kernel_cases(model: str) -> list[tuple]:
     if model == ARCH:
         cases = {(ARCH, "lut_gather", 4, "bfloat16"),
                  (ARCH, "lut_gather", 32, "bfloat16"),
+                 (ARCH, "lut_onehot", 4, "bfloat16"),
+                 (ARCH, "lut_onehot", 32, "bfloat16"),
                  (ARCH, "tl2", 1, "bfloat16"), (ARCH, "tl2", 2, "bfloat16"),
                  (ARCH, "tl2", 4, "int8")}
         for policy, act in PINNED.values():
@@ -410,6 +432,11 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
                 for kn, c in counts.items()) * 1e3
     what = ("3 expert stacks (wi, wg, wo)" if grouped else
             f"{sum(counts.values())} projections")
+    first = next(iter(sel.values()))
+    if "ceiling_ms" in first:
+        tot["ceiling_ms"] = sum(sel[kn]["ceiling_ms"] * c
+                                for kn, c in counts.items())
+        tot["ceiling_by"] = first["ceiling_by"]
     return {**tot, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max(r["max_abs_err"] for r in rows

@@ -89,6 +89,28 @@ def encode_weight_matrix(w_t: torch.Tensor, mu: int) -> torch.Tensor:
     return encode_groups(w_t.reshape(O, (N + pad) // mu, mu), mu)
 
 
+#: the served LUT keys' rows are padded to a multiple of this many bytes,
+#: so every row starts 16-byte aligned for the kernel's 16-byte copies
+KEY_ROW_BYTES = 16
+
+
+def pad_key_rows(keys: torch.Tensor, mu: int) -> torch.Tensor:
+    """Keys ``[..., G]`` as the LUT kernel reads them when served: a view
+    of rows padded to a multiple of :data:`KEY_ROW_BYTES` bytes, the
+    padding holding the zero key ``T`` (past the logical width, where the
+    kernel never reads).  Rows already that long are returned as they
+    are."""
+    g = keys.shape[-1]
+    per_row = KEY_ROW_BYTES // keys.element_size()
+    padded = -(-g // per_row) * per_row
+    if padded == g:
+        return keys
+    buf = torch.full((*keys.shape[:-1], padded), table_size(mu),
+                     dtype=keys.dtype, device=keys.device)
+    buf[..., :g] = keys
+    return buf[..., :g]
+
+
 TRITS_PER_BYTE = 5  # 3^5 = 243 <= 256
 
 

@@ -148,11 +148,14 @@ class TernaryWeight:
         return self._packed
 
     def keys(self, mu: int | None = None) -> torch.Tensor:
-        """Group keys ``[N, ceil(K/mu)]`` (LUT path)."""
+        """Group keys ``[N, ceil(K/mu)]`` (LUT path): one view, kept, of
+        rows padded to 16 bytes with the zero key
+        (:func:`encoding.pad_key_rows`), which the LUT kernel reads in
+        place."""
         mu = mu or self.mu
         if mu not in self._keys:
-            self._keys[mu] = encoding.encode_weight_matrix(
-                self._trits_uncached(), mu)
+            self._keys[mu] = encoding.pad_key_rows(
+                encoding.encode_weight_matrix(self._trits_uncached(), mu), mu)
         return self._keys[mu]
 
     def tl2(self) -> torch.Tensor:
@@ -314,12 +317,9 @@ def _run_ref(x2, w, mu):
 
 
 def _run_lut(kernel):
+    # x of the logical width K: the kernels take the last group short
     def run(x2, w, mu):
-        keys = w.keys(mu)
-        pad = keys.shape[-1] * mu - x2.shape[-1]
-        if pad:
-            x2 = torch.nn.functional.pad(x2, (0, pad))
-        return kernel(x2, keys, mu)
+        return kernel(x2, w.keys(mu), mu)
 
     return run
 

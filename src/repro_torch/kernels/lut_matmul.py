@@ -14,7 +14,10 @@
 CUDA kernel's two entry points (``csrc/lut_matmul.cu``), each with its own
 launch count; :func:`lut_matmul_torch` and :func:`lut_onehot_matmul_torch`
 are their plain PyTorch versions, used for CPU tensors and as the kernel's
-reference on the card.
+reference on the card.  All four take x of the weight's logical width K
+(the last group short: ``G·mu − mu < K ≤ G·mu``) or zero-padded to
+``G·mu``, and keys at any row stride (served keys are a view of rows padded
+to 16 bytes, :func:`repro_torch.core.encoding.pad_key_rows`).
 """
 
 from __future__ import annotations
@@ -25,17 +28,27 @@ import functools
 import torch
 
 from repro_torch.core import encoding
+from repro_torch.kernels._build import aligned_rows
 
 #: the group size the CUDA kernel is built for (every served config's mu)
 KERNEL_MU = 3
 
 
 def _check(x: torch.Tensor, keys: torch.Tensor, mu: int):
-    B, N = x.shape
+    """``x [B, K]`` against keys ``[O, G]``: K is the logical width
+    (``G·mu − mu < K ≤ G·mu``, the last group short) or the padded ``G·mu``."""
+    B, K = x.shape
     O, G = keys.shape
-    if N != G * mu:
-        raise ValueError(f"N={N} != G*mu={G * mu}")
+    if not G * mu - mu < K <= G * mu:
+        raise ValueError(f"x width K={K} does not fill G={G} groups of "
+                         f"mu={mu} (needs {G * mu - mu} < K <= {G * mu})")
     return B, O, G
+
+
+def _padded(x: torch.Tensor, G: int, mu: int) -> torch.Tensor:
+    """``x`` zero-padded to ``G·mu`` columns (the plain versions' tables)."""
+    pad = G * mu - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def _tables(x: torch.Tensor, B: int, G: int, mu: int) -> torch.Tensor:
@@ -57,10 +70,11 @@ def lut_matmul_torch(x: torch.Tensor, keys: torch.Tensor, mu: int) -> torch.Tens
     """Plain LUT matmul, gather fetch: ``y[b, o] = Σ_n x[b, n] ·
     decode(keys)[o, n]``.
 
-    x: [B, G·mu] activations (f32/bf16/int8); keys: [O, G]
+    x: [B, K] activations (f32/bf16/int8), K the logical width or padded
+    to G·mu (zero-padded here); keys: [O, G]
     (:func:`encoding.encode_weight_matrix`).  Returns [B, O] f32."""
     B, O, G = _check(x, keys, mu)
-    tables = _tables(x, B, G, mu)                              # [B, G, T+1]
+    tables = _tables(_padded(x, G, mu), B, G, mu)              # [B, G, T+1]
     idx, sign = _split_keys(keys, mu)                          # [O, G]
     g = torch.arange(G, device=x.device)
     fetched = tables[:, g[None, :], idx]                       # [B, O, G]
@@ -73,7 +87,7 @@ def lut_onehot_matmul_torch(x: torch.Tensor, keys: torch.Tensor,
     contracted with the signed one-hot ``[O, G·(T+1)]`` of the keys.  Same
     arguments and result as :func:`lut_matmul_torch`."""
     B, O, G = _check(x, keys, mu)
-    tables = _tables(x, B, G, mu)                              # [B, G, T+1]
+    tables = _tables(_padded(x, G, mu), B, G, mu)              # [B, G, T+1]
     idx, sign = _split_keys(keys, mu)
     onehot = torch.nn.functional.one_hot(idx, tables.shape[-1]) * sign[..., None]
     return tables.reshape(B, -1) @ onehot.reshape(O, -1).T
@@ -86,14 +100,25 @@ def _kernel(entry: str):
 
     fn = getattr(load("lut_matmul"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p])
     return fn
+
+
+#: activation dtypes the kernel reads as they are (one instantiation each);
+#: others are cast to f32
+_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
             mu: int) -> torch.Tensor:
     """CPU tensors take ``plain``; CUDA tensors launch ``entry`` and count
-    the launch on ``wrapper``; any other device raises."""
+    the launch on ``wrapper``; any other device raises.  On the card x and
+    the keys are read where they lie (served bf16 x and keys are neither
+    cast nor copied): rows are copied only where they are not 16-byte
+    aligned (:func:`aligned_rows`), and x only cast where the kernel has no
+    instantiation for its dtype."""
     if x.device.type == "cpu" and keys.device.type == "cpu":
         return plain(x, keys, mu)
     if x.device.type != "cuda" or keys.device != x.device:
@@ -103,16 +128,44 @@ def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
         raise ValueError(f"the CUDA LUT kernel takes uint8 keys at mu="
                          f"{KERNEL_MU}; got {keys.dtype} keys at mu={mu}")
     B, O, G = _check(x, keys, mu)
-    xf = x.to(torch.float32).contiguous()
-    keys = keys.contiguous()
     out = torch.empty((B, O), dtype=torch.float32, device=x.device)
-    rc = _kernel(entry)(xf.data_ptr(), keys.data_ptr(), out.data_ptr(), B, O,
-                        G, mu, torch.cuda.current_stream(x.device).cuda_stream)
+    if B == 0 or O == 0 or G == 0:
+        return out.zero_()
+    if x.dtype not in _X_KIND:
+        x = x.to(torch.float32)
+    (x, ldx), (keys, ldk) = aligned_rows(x), aligned_rows(keys)
+    rc = _kernel(entry)(x.data_ptr(), _X_KIND[x.dtype], keys.data_ptr(),
+                        out.data_ptr(), B, O, x.shape[1], G, mu, ldx, ldk,
+                        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {rc}")
     wrapper.launches += 1
     return out
+
+
+def launch_grid(onehot: bool, x_dtype: torch.dtype, m: int, n: int, k: int,
+                g: int) -> tuple[int, int, int, int]:
+    """The CUDA kernel's plan for an ``[m, k] x [n, g]`` call on the
+    current card, without launching: ``(column tiles, K splits, row tiles,
+    threads a block)``."""
+    blocks = (ctypes.c_int * 4)()
+    rc = _plan_entry()(int(onehot), _X_KIND.get(x_dtype, 0), m, n, k, g,
+                       KERNEL_MU, blocks)
+    if rc != 0:
+        raise RuntimeError(f"lut_matmul_plan failed: CUDA error {rc}")
+    return tuple(blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    """The C plan entry point, built and typed on first use."""
+    from repro_torch.kernels._build import load
+
+    fn = load("lut_matmul").lut_matmul_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    return fn
 
 
 def lut_matmul(x: torch.Tensor, keys: torch.Tensor, mu: int) -> torch.Tensor:

@@ -28,7 +28,8 @@ def _rescale(y: torch.Tensor, scale, x: torch.Tensor) -> torch.Tensor:
 def ternary_linear_lut(x: torch.Tensor, keys: torch.Tensor, scale, mu: int, *,
                        fetch: str = "onehot") -> torch.Tensor:
     """``y = (x @ decode(keys).T) * scale`` through the LUT kernel with the
-    ``"onehot"`` or ``"gather"`` fetch.  x: [..., G·mu]."""
+    ``"onehot"`` or ``"gather"`` fetch.  x: [..., K], K the weight's
+    logical width or G·mu."""
     kernels = {"onehot": lut_onehot_matmul, "gather": lut_matmul}
     if fetch not in kernels:
         raise ValueError(f"fetch must be one of {sorted(kernels)}, got {fetch!r}")

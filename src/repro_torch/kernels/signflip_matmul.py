@@ -18,6 +18,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels._build import aligned_rows as _rows
+
 
 def signflip_matmul_torch(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """Plain sign-flip matmul, written as the mux-select it models:
@@ -48,24 +50,6 @@ def _kernel():
 #: activation dtypes the kernel reads as they are (f32 splits into three
 #: bf16 terms, bf16 and int8 are one exact term); others are cast to f32
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-
-def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``t`` and the row stride (in elements) the kernel reads it at.  The
-    kernel copies 16 bytes at a time, so every row must start 16-byte
-    aligned.  Rows are read in place where each is contiguous, they do not
-    overlap and they are aligned (the served trits are a view of rows
-    padded to a multiple of 640 bytes); otherwise they are copied to a
-    stride rounded up to 16 bytes, whose padding the kernel never reads."""
-    rows, cols = t.shape
-    align = 16 // t.element_size()
-    padded = -(-cols // align) * align
-    ld = t.stride(0) if rows > 1 else padded    # one row: any stride will do
-    if t.stride(1) != 1 or ld < cols or ld % align or t.data_ptr() % 16:
-        buf = t.new_empty((rows, padded))
-        buf[:, :cols] = t
-        t, ld = buf[:, :cols], padded
-    return t, ld
 
 
 def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:

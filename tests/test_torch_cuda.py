@@ -415,3 +415,172 @@ def test_grouped_dispatch_on_the_card_launches_grouped_dequant(cuda):
     assert got.dtype == torch.bfloat16 and got.shape == (8, 1, 256)
     assert float((got.float() - want.float()).abs().max()) <= \
         2 ** -7 * float(want.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# lut_gather and lut_onehot: x and keys as served
+# ---------------------------------------------------------------------------
+
+LUT = {"gather": (tlut.lut_matmul, tlut.lut_matmul_torch),
+       "onehot": (tlut.lut_onehot_matmul, tlut.lut_onehot_matmul_torch)}
+
+
+def _lut_once(fetch, x, keys):
+    """One kernel call; it must launch (and count) exactly once, and the
+    other fetch's count must not move."""
+    fn, _ = LUT[fetch]
+    other = LUT["onehot" if fetch == "gather" else "gather"][0]
+    n0, o0 = fn.launches, other.launches
+    got = fn(x, keys, 3)
+    assert fn.launches == n0 + 1 and other.launches == o0
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0], keys.shape[0])
+    return got
+
+
+def _served_keys(w: np.ndarray, device) -> torch.Tensor:
+    """The keys as a served weight holds them: a view of rows padded to
+    16 bytes."""
+    wt = torch.from_numpy(w).to(device)
+    return tdispatch.TernaryWeight.from_ternary(wt).keys(3)
+
+
+# bitnet's four projection shapes (K = 2560: G = 854, the last group short)
+# and ragged ones
+LUT_SHAPES = [(4, 640, 2560), (4, 2560, 2560), (4, 6912, 2560),
+              (4, 2560, 6912), (32, 2560, 2560), (32, 2560, 6912),
+              (3, 37, 50), (9, 130, 301)]
+
+
+@pytest.mark.parametrize("B,O,K", LUT_SHAPES)
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_on_f32_x_bf16_cannot_hold(cuda, fetch, B, O, K):
+    """f32 x whose values need all 24 bits: the tables are f32 sums (the
+    one-hot feeds them as three exact bf16 terms)."""
+    x, w = _case(40, B, O, K)
+    xt = torch.from_numpy(x).to(cuda)
+    assert not torch.equal(xt, xt.to(torch.bfloat16).float())
+    got = _lut_once(fetch, xt, _served_keys(w, cuda))
+    want = LUT[fetch][1](xt, _served_keys(w, cuda), 3)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", LUT_SHAPES)
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_on_bf16_x(cuda, fetch, B, O, K):
+    x, w = _case(41, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    keys = _served_keys(w, cuda)
+    got = _lut_once(fetch, xt, keys)
+    want = LUT[fetch][1](xt, keys, 3)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", LUT_SHAPES)
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_exact_on_int8_x(cuda, fetch, B, O, K):
+    x, w = _case(42, B, O, K, int8=True)
+    xt = torch.from_numpy(x).to(cuda)
+    got = _lut_once(fetch, xt, _served_keys(w, cuda))
+    want = x.astype(np.int64) @ w.T.astype(np.int64)
+    assert torch.equal(got.cpu().to(torch.int64), torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("K", [2560, 301])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_ragged_rows(cuda, fetch, dtype, B, K):
+    x, w = _case(43, B, 640, K)
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    keys = _served_keys(w, cuda)
+    got = _lut_once(fetch, xt, keys)
+    want = LUT[fetch][1](xt, keys, 3)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("K", [2560, 6912, 301, 50])
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_takes_unpadded_x_and_keys_at_any_stride(cuda, fetch, K):
+    """x of the logical width (the last group short where K % 3 != 0) gives
+    what x zero-padded to G*3 gives, bit for bit; so do the served keys (a
+    padded-stride view), contiguous keys (rows not 16-byte aligned where G
+    % 16 != 0, copied by the wrapper) and keys at an odd stride."""
+    x, w = _case(44, 4, 640, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    served = _served_keys(w, cuda)
+    G = served.shape[1]
+    contiguous = tenc.encode_weight_matrix(torch.from_numpy(w).to(cuda), 3)
+    odd = torch.full((640, G + 5), 13, dtype=torch.uint8, device=cuda)
+    odd[:, :G] = contiguous
+    got = _lut_once(fetch, xt, served)
+    xp = torch.nn.functional.pad(xt, (0, G * 3 - K))
+    assert torch.equal(got, _lut_once(fetch, xp, served))
+    assert torch.equal(got, _lut_once(fetch, xt, contiguous))
+    assert torch.equal(got, _lut_once(fetch, xt, odd[:, :G]))
+    want = LUT[fetch][1](xt, served, 3)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", [(4, 640, 2560), (4, 2560, 6912),
+                                   (32, 6912, 2560), (9, 130, 301)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_kernel_is_deterministic(cuda, fetch, dtype, B, O, K):
+    """Split-K partials are summed in split order, with no float atomics:
+    two calls on the same inputs agree bit for bit."""
+    x, w = _case(45, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    keys = _served_keys(w, cuda)
+    assert torch.equal(_lut_once(fetch, xt, keys), _lut_once(fetch, xt, keys))
+
+
+@pytest.mark.parametrize("B,O,K", LUT_SHAPES)
+def test_lut_onehot_equals_lut_gather(cuda, B, O, K):
+    x, w = _case(46, B, O, K)
+    xt = torch.from_numpy(x).to(cuda)
+    keys = _served_keys(w, cuda)
+    got = _lut_once("onehot", xt, keys)
+    assert float((got - _lut_once("gather", xt, keys)).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_grid_fills_the_card_at_bitnet_decode(cuda, fetch):
+    """At M = 4 every bitnet projection launches at least one block per SM,
+    and two where N >= 2560."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in [(2560, 640), (2560, 2560), (2560, 6912), (6912, 2560)]:
+        gx, gy, gz, threads = tlut.launch_grid(fetch == "onehot",
+                                               torch.bfloat16, 4, n, k,
+                                               -(-k // 3))
+        assert gx * gy * gz >= (2 if n >= 2560 else 1) * sms, (k, n, gx, gy)
+        assert threads in (32, 64, 128) and 1 <= gy <= 8
+
+
+@pytest.mark.parametrize("fetch", ["gather", "onehot"])
+def test_lut_wrapper_reads_served_inputs_in_place(cuda, fetch, monkeypatch):
+    """bf16 x and served keys reach the kernel with no cast, pad or copy,
+    and a CUDA tensor never takes the plain version."""
+    def boom(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tlut, "lut_matmul_torch", boom)
+    monkeypatch.setattr(tlut, "lut_onehot_matmul_torch", boom)
+    rows = tlut.aligned_rows
+    seen = []
+
+    def recording(t):
+        got, ld = rows(t)
+        seen.append(got.data_ptr() == t.data_ptr() and got.dtype == t.dtype)
+        return got, ld
+
+    monkeypatch.setattr(tlut, "aligned_rows", recording)
+    x, w = _case(47, 4, 640, 2560)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w).to(cuda))
+    name = "lut_gather" if fetch == "gather" else "lut_onehot"
+    fn = LUT[fetch][0]
+    n0 = fn.launches
+    tdispatch.ternary_matmul(xt, tw, policy=f"fixed:{name}")
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and seen == [True, True]
