@@ -99,6 +99,12 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+#: activation dtypes the kernels built per dtype (signflip, lut_gather,
+#: lut_onehot) read as they are, by the code their C entries take; the
+#: wrappers cast any other dtype to f32
+X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
 def aligned_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     """``t`` (2-D) and the row stride (in elements) a kernel reads it at.
     The kernels copy 16 bytes at a time, so every row must start 16-byte

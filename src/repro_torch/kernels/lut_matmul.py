@@ -28,7 +28,7 @@ import functools
 import torch
 
 from repro_torch.core import encoding
-from repro_torch.kernels._build import aligned_rows
+from repro_torch.kernels._build import X_KIND, aligned_rows
 
 #: the group size the CUDA kernel is built for (every served config's mu)
 KERNEL_MU = 3
@@ -106,11 +106,6 @@ def _kernel(entry: str):
     return fn
 
 
-#: activation dtypes the kernel reads as they are (one instantiation each);
-#: others are cast to f32
-_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-
 def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
             mu: int) -> torch.Tensor:
     """CPU tensors take ``plain``; CUDA tensors launch ``entry`` and count
@@ -131,10 +126,10 @@ def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
     out = torch.empty((B, O), dtype=torch.float32, device=x.device)
     if B == 0 or O == 0 or G == 0:
         return out.zero_()
-    if x.dtype not in _X_KIND:
+    if x.dtype not in X_KIND:
         x = x.to(torch.float32)
     (x, ldx), (keys, ldk) = aligned_rows(x), aligned_rows(keys)
-    rc = _kernel(entry)(x.data_ptr(), _X_KIND[x.dtype], keys.data_ptr(),
+    rc = _kernel(entry)(x.data_ptr(), X_KIND[x.dtype], keys.data_ptr(),
                         out.data_ptr(), B, O, x.shape[1], G, mu, ldx, ldk,
                         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -150,7 +145,7 @@ def launch_grid(onehot: bool, x_dtype: torch.dtype, m: int, n: int, k: int,
     current card, without launching: ``(column tiles, K splits, row tiles,
     threads a block)``."""
     blocks = (ctypes.c_int * 4)()
-    rc = _plan_entry()(int(onehot), _X_KIND.get(x_dtype, 0), m, n, k, g,
+    rc = _plan_entry()(int(onehot), X_KIND.get(x_dtype, 0), m, n, k, g,
                        KERNEL_MU, blocks)
     if rc != 0:
         raise RuntimeError(f"lut_matmul_plan failed: CUDA error {rc}")

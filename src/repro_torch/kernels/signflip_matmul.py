@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import aligned_rows as _rows
+from repro_torch.kernels._build import X_KIND, aligned_rows as _rows
 
 
 def signflip_matmul_torch(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
@@ -47,11 +47,6 @@ def _kernel():
     return fn
 
 
-#: activation dtypes the kernel reads as they are (f32 splits into three
-#: bf16 terms, bf16 and int8 are one exact term); others are cast to f32
-_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-
 def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """Sign-flip matmul through the CUDA kernel for CUDA tensors
     (``launches`` counts the launches); CPU tensors take
@@ -71,10 +66,12 @@ def signflip_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, O), dtype=torch.float32, device=x.device)
     if B == 0 or O == 0 or K == 0:
         return out.zero_()
-    if x.dtype not in _X_KIND:
+    # f32 x splits into three bf16 terms in the kernel, bf16 and int8 x are
+    # one exact term
+    if x.dtype not in X_KIND:
         x = x.to(torch.float32)
     (x, ldx), (w_t, ldw) = _rows(x), _rows(w_t)
-    rc = _kernel()(x.data_ptr(), _X_KIND[x.dtype], w_t.data_ptr(),
+    rc = _kernel()(x.data_ptr(), X_KIND[x.dtype], w_t.data_ptr(),
                    out.data_ptr(), B, O, K, ldx, ldw,
                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
