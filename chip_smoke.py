@@ -90,6 +90,7 @@ device time only.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -116,9 +117,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
-#: shared memory: 128 bytes a clock an SM, 132 SMs at 1.755 GHz (the
-#: ceiling of lut_gather's table reads, stated in its source note)
-SMEM_BYTES_PER_S = 128 * 132 * 1.755e9
+#: shared memory returns 128 bytes a clock an SM (times the SMs and the
+#: SM clock read in the run: the ceiling of lut_gather's table reads)
+SMEM_BYTES_PER_CLOCK = 128
 LOGIT_ATOL = 2.0 ** -3
 #: sub-layer outputs with the same input, kernels vs ``ref``, relative to
 #: the output's largest magnitude (see the module docstring)
@@ -184,6 +185,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clocks_mhz() -> tuple[float, float]:
+    """The card's SM clock now and its maximum, in MHz, as nvidia-smi reads
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True)
+    now, top = out.stdout.strip().splitlines()[0].split(",")
+    return float(now), float(top)
+
+
+def smem_bytes_per_s(torch) -> float:
+    """Shared memory's peak rate over the card: 128 bytes a clock an SM at
+    the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SMEM_BYTES_PER_CLOCK * sms * sm_clocks_mhz()[1] * 1e6
+
+
 # ---------------------------------------------------------------------------
 # per-kernel check and timing
 # ---------------------------------------------------------------------------
@@ -216,7 +236,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
     trits = torch.randint(-1, 2, (*lead, n, k), generator=g, device=dev,
                           dtype=torch.int8)
     # base-3 bytes with the serving artifact's row padding
-    packed = encoding.pad_packed_rows(encoding.pack_base3(trits))
+    packed = encoding.pad_rows(encoding.pack_base3(trits),
+                               encoding.PACKED_ROW_BYTES)
     rate = F32_OPS_PER_S
     experts = e or 1
     packed_bytes = experts * n * -(-k // encoding.TRITS_PER_BYTE)
@@ -262,7 +283,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
             ceiling = ("tensor cores", mmas * 4096 / BF16_OPS_PER_S * 1e3)
         else:
             # the design's ceiling: one 4-byte table read per key and row
-            ceiling = ("shared memory", 4 * m * n * G / SMEM_BYTES_PER_S * 1e3)
+            ceiling = ("shared memory",
+                       4 * m * n * G / smem_bytes_per_s(torch) * 1e3)
     elif name == "tl2":
         words = w.tl2()
         kernel = lambda: tl2.tl2_matmul(x, words, k)            # noqa: E731
@@ -331,8 +353,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
     if ceiling is not None:
         row["ceiling_by"], row["ceiling_ms"] = ceiling
-        row["grid"] = lut.launch_grid(name == "lut_onehot", x.dtype, m, n, k,
-                                      G)
+        row["grid"] = fn.last_grid
     return row
 
 
@@ -432,17 +453,33 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
                 for kn, c in counts.items()) * 1e3
     what = ("3 expert stacks (wi, wg, wo)" if grouped else
             f"{sum(counts.values())} projections")
-    first = next(iter(sel.values()))
-    if "ceiling_ms" in first:
-        tot["ceiling_ms"] = sum(sel[kn]["ceiling_ms"] * c
-                                for kn, c in counts.items())
-        tot["ceiling_by"] = first["ceiling_by"]
     return {**tot, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "at": f"{model}, {'C' if grouped else 'M'}={m} {act}, sum over "
                   f"one layer's {what}"}
+
+
+def lut_ceilings(rows: list[dict]) -> list[dict]:
+    """The LUT kernels' design ceilings (their source note's) for one
+    bitnet layer at each M they were timed at, beside the layer's time:
+    the sums over the layer's projections."""
+    out = []
+    for name in ("lut_gather", "lut_onehot"):
+        for m in sorted({r["M"] for r in rows if r["kernel"] == name}):
+            sel = {(r["K"], r["N"]): r for r in rows
+                   if r["kernel"] == name and r["M"] == m
+                   and r["act"] == "bfloat16" and r["model"] == ARCH}
+            if set(sel) != set(LAYER_KN[ARCH]):
+                continue
+            tot = {key: sum(sel[kn][key] * c
+                            for kn, c in LAYER_KN[ARCH].items())
+                   for key in ("ms", "library_ms", "ceiling_ms")}
+            out.append({"kernel": name, "M": m, **tot,
+                        "ceiling_by": next(iter(sel.values()))["ceiling_by"],
+                        "sm_clock_max_mhz": sm_clocks_mhz()[1]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -827,9 +864,11 @@ def main() -> int:
     t_start = time.perf_counter()
     card = gpu_line()
     print(card, flush=True)
+    clock, clock_max = sm_clocks_mhz()
     emit("env", gpu=card, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         sm_clock_mhz=clock, sm_clock_max_mhz=clock_max)
 
     t0 = time.perf_counter()
     logs = _build.build_all(CUDA_SOURCES)
@@ -842,6 +881,8 @@ def main() -> int:
     cases = kernel_cases(ARCH)
     rows = check_kernels(torch, cases, flush)
     checked = set(cases)
+    for c in lut_ceilings(rows):
+        emit("lut_ceiling", **c)
 
     cfg, served = build_model(torch, ARCH)
     paths = {}

@@ -89,28 +89,6 @@ def encode_weight_matrix(w_t: torch.Tensor, mu: int) -> torch.Tensor:
     return encode_groups(w_t.reshape(O, (N + pad) // mu, mu), mu)
 
 
-#: the served LUT keys' rows are padded to a multiple of this many bytes,
-#: so every row starts 16-byte aligned for the kernel's 16-byte copies
-KEY_ROW_BYTES = 16
-
-
-def pad_key_rows(keys: torch.Tensor, mu: int) -> torch.Tensor:
-    """Keys ``[..., G]`` as the LUT kernel reads them when served: a view
-    of rows padded to a multiple of :data:`KEY_ROW_BYTES` bytes, the
-    padding holding the zero key ``T`` (past the logical width, where the
-    kernel never reads).  Rows already that long are returned as they
-    are."""
-    g = keys.shape[-1]
-    per_row = KEY_ROW_BYTES // keys.element_size()
-    padded = -(-g // per_row) * per_row
-    if padded == g:
-        return keys
-    buf = torch.full((*keys.shape[:-1], padded), table_size(mu),
-                     dtype=keys.dtype, device=keys.device)
-    buf[..., :g] = keys
-    return buf[..., :g]
-
-
 TRITS_PER_BYTE = 5  # 3^5 = 243 <= 256
 
 
@@ -130,15 +108,20 @@ def pack_base3(w_t: torch.Tensor) -> torch.Tensor:
 #: the serving artifact pads each row of base-3 bytes to a multiple of this
 #: many bytes, so the trits a row decodes to start every 640 bytes
 PACKED_ROW_BYTES = 128
+#: the served LUT keys' rows are padded to a multiple of this many bytes,
+#: so every row starts 16-byte aligned for the kernel's 16-byte copies
+KEY_ROW_BYTES = 16
 
 
-def pad_packed_rows(packed: torch.Tensor) -> torch.Tensor:
-    """Base-3 bytes ``[..., ceil(n/5)]`` with each row zero-padded to a
-    multiple of :data:`PACKED_ROW_BYTES`, as the serving artifact stores
-    them.  The padding decodes past the logical width, where the kernels
-    never read."""
-    pad = (-packed.shape[-1]) % PACKED_ROW_BYTES
-    return torch.nn.functional.pad(packed, (0, pad)) if pad else packed
+def pad_rows(t: torch.Tensor, row_bytes: int, value: int = 0) -> torch.Tensor:
+    """``t [..., n]`` with each row padded to a multiple of ``row_bytes``
+    bytes, the padding holding ``value``: the serving artifact's base-3
+    rows (:data:`PACKED_ROW_BYTES`, zeros) and the served LUT keys' rows
+    (:data:`KEY_ROW_BYTES`, the zero key).  The padding lies past the
+    logical width, where the kernels never read.  Rows already that long
+    are returned as they are."""
+    pad = (-t.shape[-1]) % (row_bytes // t.element_size())
+    return torch.nn.functional.pad(t, (0, pad), value=value) if pad else t
 
 
 @functools.lru_cache(maxsize=None)

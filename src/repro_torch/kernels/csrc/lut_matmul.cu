@@ -19,11 +19,14 @@
 // (2560, 640) x2, (2560, 6912) x2, (6912, 2560) x1; 23.2 M keys):
 //   * bytes: the keys, one byte per group of 3 weights, 23.2 MB a layer:
 //     6.9 us at 3.35 TB/s, at every M;
-//   * the gather's shared-memory reads: one 4-byte table entry per key and
-//     row, 4 M bytes a key.  Shared memory returns at most 128 B/clk per
-//     SM, about 29.6 TB/s over the card, so the gather cannot go below
-//     12.5 us a layer at M = 4 or 100 us at M = 32, where these reads and
-//     not the bytes bound it;
+//   * the gather's shared-memory reads, as this design models them: one
+//     4-byte table entry per key and row, 4 M bytes a key, at 128 B/clk
+//     per SM (a warp's 64-bit read as two wavefronts; whether the card
+//     merges the duplicate entries of one read into fewer is not
+//     measured).  At the maximum SM clock (1.98 GHz on the H100 SXM:
+//     33.4 TB/s over 132 SMs; chip_smoke reads the clock each run) these
+//     reads take 11.1 us a layer at M = 4 and 89 us at M = 32, where they
+//     and not the bytes would bound it;
 //   * the one-hot's MMAs: mma.sync.m16n8k16 takes one group (16 entries)
 //     by 16 output columns by 8 (row, term) slots, 3 bf16 terms a row:
 //     2.9 M MMAs a layer at M = 4 (12 of 16 slots used), 17.4 M at M = 32,
@@ -35,8 +38,10 @@
 //     cycles each), 24 a key where the gather spends about 11 for 4 rows:
 //     at M = 4 this, not the MMAs, sets the one-hot's pace (about 40 us a
 //     layer at full issue);
-//   * per call, about 5 us of launch and timing cost and 2-4 us for the
-//     first loads from a cold L2 (the timer flushes it), 7 calls a layer.
+//   * per call, a cost that does not grow with the keys: launch, the
+//     first loads from a cold L2 (the timer flushes it) and the cluster
+//     reduction; the smallest call, 0.55 M keys, takes about 9 us on the
+//     card (PERF.md), 7 calls a layer.
 // The first design lost 140x to the key bytes: 5-54 blocks of 128
 // threads on 132 SMs, each walking all of K, byte-wide synchronous loads,
 // and 14 f32 FMAs per key and row for the one-hot.  This one:
@@ -89,13 +94,13 @@
 //    step as exact bf16 terms, slot n = q MT + b holding term q of row b
 //    (so at M = 4 the 3 terms of 4 rows fill 12 of two tiles' 16 slots),
 //    one accumulator tile per B tile and the terms summed at the end.
-//    bf16 and int8 x feed the entry's three signed x components d_q x_q,
-//    each exact in bf16: a word is one AND and one XOR of x_q with masks
-//    known at compile time.  f32 x, whose components would need three
-//    terms each, feeds each f32 entry split by truncation into hi + mid +
-//    lo (as signflip splits x).  +-1 times an exact term is exact, so the
-//    contraction is the same conditional add the TPU kernel runs on its
-//    MXU.
+//    Every x dtype feeds the same way: each f32 table entry, as the
+//    gather reads it, is split by truncation into hi + mid + lo (as
+//    signflip splits x), three exact bf16 terms that sum to it.  (A second
+//    feed for bf16 and int8 x, the entry's three signed x components, took
+//    as many terms and MMAs and was no faster on the card: PERF.md, PR
+//    18.)  +-1 times an exact term is exact, so the contraction is the
+//    same conditional add the TPU kernel runs on its MXU.
 //
 // Ragged edges are masked: columns past N and rows past M compute on zero
 // keys or zero x and are not stored.
@@ -269,26 +274,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return c ^ ((r / (8 / CPR)) % CPR);
 }
 
-// bf16 masks of one table word (entries 2p, 2p + 1) in term q of the
-// component feed: keep the halves whose digit d_q is not 0, flip the sign
-// of those whose digit is -1
-__host__ __device__ constexpr uint32_t keep_mask(int q, int p) {
-  return (digit(2 * p, q) ? 0x0000FFFFu : 0u) | (digit(2 * p + 1, q) ? 0xFFFF0000u : 0u);
-}
-__host__ __device__ constexpr uint32_t flip_mask(int q, int p) {
-  return (digit(2 * p, q) < 0 ? 0x00008000u : 0u) |
-         (digit(2 * p + 1, q) < 0 ? 0x80000000u : 0u);
-}
-
-// the 8 words of term q from uu, x_q's bf16 bits in both halves; the
-// masks are constants of the compiled code
-template <int q, int... ps>
-__device__ __forceinline__ void component_words(std::integer_sequence<int, ps...>,
-                                                uint32_t uu, uint32_t* w) {
-  ((w[ps] = (uu & std::integral_constant<uint32_t, keep_mask(q, ps)>::value) ^
-            std::integral_constant<uint32_t, flip_mask(q, ps)>::value), ...);
-}
-
 // One block: columns [o0, o0 + BN), rows [m0, m0 + MT), the steps of split
 // blockIdx.y (a balanced share of ceil(G / SGS) steps of SGS groups).
 // Warp w owns columns BN / WN (w % WN) and the (w / WN)-th 16 groups of
@@ -396,35 +381,19 @@ lut_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ keys,
         const int j = e / MT, b = e % MT;
         if (b >= rows) continue;
         const T* xr = reinterpret_cast<const T*>(xs + b * XROW) + j * MU;
+        // each f32 entry split by truncation into hi + mid + lo
+        float ev[16];
+        table_row(to_f32<KIND>(xr[0]), to_f32<KIND>(xr[1]), to_f32<KIND>(xr[2]), ev);
+        ev[14] = ev[15] = 0.f;
         uint32_t w[3][8];
-        if constexpr (KIND == X_F32) {
-          // each f32 entry split by truncation into hi + mid + lo
-          float ev[16];
-          table_row(xr[0], xr[1], xr[2], ev);
-          ev[14] = ev[15] = 0.f;
 #pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            uint32_t h0, md0, l0, h1, md1, l1;
-            split3(ev[2 * p], h0, md0, l0);
-            split3(ev[2 * p + 1], h1, md1, l1);
-            w[0][p] = h0 | (h1 << 16);
-            w[1][p] = md0 | (md1 << 16);
-            w[2][p] = l0 | (l1 << 16);
-          }
-        } else {
-          // term q: the entries' signed x_q components d_q(t) x_q, exact
-          // in bf16 for bf16 and int8 x
-          uint32_t uu[3];
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            uint32_t u;
-            if constexpr (KIND == X_BF16) u = xr[q];
-            else u = __float_as_uint(static_cast<float>(xr[q])) >> 16;
-            uu[q] = u | (u << 16);
-          }
-          component_words<0>(std::make_integer_sequence<int, 8>{}, uu[0], w[0]);
-          component_words<1>(std::make_integer_sequence<int, 8>{}, uu[1], w[1]);
-          component_words<2>(std::make_integer_sequence<int, 8>{}, uu[2], w[2]);
+        for (int p = 0; p < 8; ++p) {
+          uint32_t h0, md0, l0, h1, md1, l1;
+          split3(ev[2 * p], h0, md0, l0);
+          split3(ev[2 * p + 1], h1, md1, l1);
+          w[0][p] = h0 | (h1 << 16);
+          w[1][p] = md0 | (md1 << 16);
+          w[2][p] = l0 | (l1 << 16);
         }
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
@@ -659,14 +628,13 @@ int plan(int M, int N, int G, int sms, dim3& grid) {
 template <int FETCH, int KIND, int MT>
 cudaError_t run(const void* x, const void* keys, void* out, int M, int N, int K,
                 int G, long long ldx, long long ldk, int sms, cudaStream_t s,
-                int* blocks) {
+                int* launched) {
   dim3 grid;
   const int l = plan<FETCH, KIND, MT>(M, N, G, sms, grid);
   if (l < 0) return cudaErrorInvalidConfiguration;
-  if (blocks) {             // the plan only
-    blocks[0] = grid.x; blocks[1] = grid.y; blocks[2] = grid.z;
-    blocks[3] = Shape<FETCH, KIND, MT, 4>::THREADS;
-    return cudaSuccess;
+  if (launched) {           // the grid, for the caller's record
+    launched[0] = grid.x; launched[1] = grid.y; launched[2] = grid.z;
+    launched[3] = Shape<FETCH, KIND, MT, 4>::THREADS;
   }
   switch (l) {
     case 0: return Config<FETCH, KIND, MT, 4>::launch(grid, x, keys, out, M, N, K, G, ldx, ldk, s);
@@ -678,19 +646,19 @@ cudaError_t run(const void* x, const void* keys, void* out, int M, int N, int K,
 template <int FETCH, int KIND>
 cudaError_t run_rows(const void* x, const void* keys, void* out, int M, int N,
                      int K, int G, long long ldx, long long ldk, int sms,
-                     cudaStream_t s, int* blocks) {
+                     cudaStream_t s, int* launched) {
   // taller row tiles would spread fewer blocks over the SMs at prefill
   // (M = 32 reads as fast in two tiles of 16: the gather is bound by its
   // shared-memory reads, which every SM must share)
-  if (M <= 4) return run<FETCH, KIND, 4>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
-  if (M <= 8) return run<FETCH, KIND, 8>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
-  return run<FETCH, KIND, 16>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
+  if (M <= 4) return run<FETCH, KIND, 4>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
+  if (M <= 8) return run<FETCH, KIND, 8>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
+  return run<FETCH, KIND, 16>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
 }
 
 template <int FETCH>
 int call(const void* x, int x_kind, const void* keys, void* out, int M, int N,
          int K, int G, int mu, long long ldx, long long ldk, void* stream,
-         int* blocks) {
+         int* launched) {
   // x rows of ldx elements and key rows of ldk bytes, 16-byte aligned
   const int esize = x_kind == X_F32 ? 4 : x_kind == X_BF16 ? 2 : 1;
   if (mu != MU || M <= 0 || N <= 0 || G <= 0 || x_kind < 0 || x_kind > 2 ||
@@ -705,10 +673,10 @@ int call(const void* x, int x_kind, const void* keys, void* out, int M, int N,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_kind == X_F32) e = run_rows<FETCH, X_F32>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
-  else if (x_kind == X_BF16) e = run_rows<FETCH, X_BF16>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
-  else e = run_rows<FETCH, X_I8>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, blocks);
-  if (e == cudaSuccess && !blocks) e = cudaGetLastError();
+  if (x_kind == X_F32) e = run_rows<FETCH, X_F32>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
+  else if (x_kind == X_BF16) e = run_rows<FETCH, X_BF16>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
+  else e = run_rows<FETCH, X_I8>(x, keys, out, M, N, K, G, ldx, ldk, sms, s, launched);
+  if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }
 
@@ -719,32 +687,22 @@ int call(const void* x, int x_kind, const void* keys, void* out, int M, int N,
 // last group may be short); keys: [N, G] uint8 with row stride ldk
 // (bytes); out: [M, N] f32, unscaled.  Rows start 16-byte aligned
 // (pointers and strides).  Built for mu = 3 only, the group size of every
-// configuration the port serves.  Launch on `stream`; return the launch
-// error (cudaErrorInvalidValue for any other mu or a misaligned row).
+// configuration the port serves.  Launch on `stream`; where `grid` is not
+// null, write the grid launched to it (column tiles, K splits, row tiles,
+// threads a block).  Return the launch error (cudaErrorInvalidValue for
+// any other mu or a misaligned row).
 extern "C" int lut_gather_matmul_f32(const void* x, int x_kind, const void* keys,
                                      void* out, int M, int N, int K, int G,
                                      int mu, long long ldx, long long ldk,
-                                     void* stream) {
+                                     void* stream, int* grid) {
   return call<GATHER>(x, x_kind, keys, out, M, N, K, G, mu, ldx, ldk, stream,
-                       nullptr);
+                       grid);
 }
 
 extern "C" int lut_onehot_matmul_f32(const void* x, int x_kind, const void* keys,
                                      void* out, int M, int N, int K, int G,
                                      int mu, long long ldx, long long ldk,
-                                     void* stream) {
+                                     void* stream, int* grid) {
   return call<ONEHOT>(x, x_kind, keys, out, M, N, K, G, mu, ldx, ldk, stream,
-                       nullptr);
-}
-
-// The grid either entry would launch for these arguments (pointers are
-// only checked for alignment), without launching: blocks[0..2] the grid
-// (column tiles, K splits, row tiles), blocks[3] the threads a block.
-extern "C" int lut_matmul_plan(int onehot, int x_kind, int M, int N, int K,
-                               int G, int mu, int* blocks) {
-  const long long ldx = (K + 15) / 16 * 16, ldk = (G + 15) / 16 * 16;
-  return onehot ? call<ONEHOT>(nullptr, x_kind, nullptr, nullptr, M, N, K, G,
-                                mu, ldx, ldk, nullptr, blocks)
-                : call<GATHER>(nullptr, x_kind, nullptr, nullptr, M, N, K, G,
-                                mu, ldx, ldk, nullptr, blocks);
+                       grid);
 }

@@ -149,13 +149,14 @@ class TernaryWeight:
 
     def keys(self, mu: int | None = None) -> torch.Tensor:
         """Group keys ``[N, ceil(K/mu)]`` (LUT path): one view, kept, of
-        rows padded to 16 bytes with the zero key
-        (:func:`encoding.pad_key_rows`), which the LUT kernel reads in
-        place."""
+        rows padded to :data:`encoding.KEY_ROW_BYTES` with the zero key,
+        which the LUT kernel reads in place."""
         mu = mu or self.mu
         if mu not in self._keys:
-            self._keys[mu] = encoding.pad_key_rows(
-                encoding.encode_weight_matrix(self._trits_uncached(), mu), mu)
+            keys = encoding.encode_weight_matrix(self._trits_uncached(), mu)
+            self._keys[mu] = encoding.pad_rows(
+                keys, encoding.KEY_ROW_BYTES,
+                encoding.table_size(mu))[:, :keys.shape[1]]
         return self._keys[mu]
 
     def tl2(self) -> torch.Tensor:
@@ -905,7 +906,8 @@ def autotune(m: int, k: int, n: int, act_dtype: str = "float32", *,
     trits = torch.from_numpy(rng.integers(-1, 2, size=(*lead, n, k),
                                           dtype=np.int8))
     x = x.to(dev)
-    packed = encoding.pad_packed_rows(encoding.pack_base3(trits.to(dev)))
+    packed = encoding.pad_rows(encoding.pack_base3(trits.to(dev)),
+                               encoding.PACKED_ROW_BYTES)
     del trits
     w = (TernaryWeight if e is None else GroupedTernaryWeight).from_packed(
         packed, 1.0, k, mu=mu)

@@ -17,7 +17,7 @@ are their plain PyTorch versions, used for CPU tensors and as the kernel's
 reference on the card.  All four take x of the weight's logical width K
 (the last group short: ``G·mu − mu < K ≤ G·mu``) or zero-padded to
 ``G·mu``, and keys at any row stride (served keys are a view of rows padded
-to 16 bytes, :func:`repro_torch.core.encoding.pad_key_rows`).
+to 16 bytes, :meth:`repro_torch.kernels.dispatch.TernaryWeight.keys`).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import functools
 import torch
 
 from repro_torch.core import encoding
-from repro_torch.kernels._build import X_KIND, aligned_rows
+from repro_torch.kernels.operands import X_KIND, aligned_rows
 
 #: the group size the CUDA kernel is built for (every served config's mu)
 KERNEL_MU = 3
@@ -102,14 +102,20 @@ def _kernel(entry: str):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     return fn
+
+
+#: the grid of the last launch, written by the C entry: (column tiles, K
+#: splits, row tiles, threads a block)
+_GRID = (ctypes.c_int * 4)()
 
 
 def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
             mu: int) -> torch.Tensor:
-    """CPU tensors take ``plain``; CUDA tensors launch ``entry`` and count
-    the launch on ``wrapper``; any other device raises.  On the card x and
+    """CPU tensors take ``plain``; CUDA tensors launch ``entry``, count
+    the launch on ``wrapper`` and keep its grid in ``wrapper.last_grid``;
+    any other device raises.  On the card x and
     the keys are read where they lie (served bf16 x and keys are neither
     cast nor copied): rows are copied only where they are not 16-byte
     aligned (:func:`aligned_rows`), and x only cast where the kernel has no
@@ -131,36 +137,13 @@ def _launch(wrapper, entry: str, plain, x: torch.Tensor, keys: torch.Tensor,
     (x, ldx), (keys, ldk) = aligned_rows(x), aligned_rows(keys)
     rc = _kernel(entry)(x.data_ptr(), X_KIND[x.dtype], keys.data_ptr(),
                         out.data_ptr(), B, O, x.shape[1], G, mu, ldx, ldk,
-                        torch.cuda.current_stream(x.device).cuda_stream)
+                        torch.cuda.current_stream(x.device).cuda_stream, _GRID)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {rc}")
     wrapper.launches += 1
+    wrapper.last_grid = tuple(_GRID)
     return out
-
-
-def launch_grid(onehot: bool, x_dtype: torch.dtype, m: int, n: int, k: int,
-                g: int) -> tuple[int, int, int, int]:
-    """The CUDA kernel's plan for an ``[m, k] x [n, g]`` call on the
-    current card, without launching: ``(column tiles, K splits, row tiles,
-    threads a block)``."""
-    blocks = (ctypes.c_int * 4)()
-    rc = _plan_entry()(int(onehot), X_KIND.get(x_dtype, 0), m, n, k, g,
-                       KERNEL_MU, blocks)
-    if rc != 0:
-        raise RuntimeError(f"lut_matmul_plan failed: CUDA error {rc}")
-    return tuple(blocks)
-
-
-@functools.lru_cache(maxsize=None)
-def _plan_entry():
-    """The C plan entry point, built and typed on first use."""
-    from repro_torch.kernels._build import load
-
-    fn = load("lut_matmul").lut_matmul_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-    return fn
 
 
 def lut_matmul(x: torch.Tensor, keys: torch.Tensor, mu: int) -> torch.Tensor:
@@ -184,3 +167,4 @@ def lut_onehot_matmul(x: torch.Tensor, keys: torch.Tensor,
 
 lut_matmul.launches = 0
 lut_onehot_matmul.launches = 0
+lut_matmul.last_grid = lut_onehot_matmul.last_grid = None

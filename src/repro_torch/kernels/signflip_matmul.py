@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import X_KIND, aligned_rows as _rows
+from repro_torch.kernels.operands import X_KIND, aligned_rows as _rows
 
 
 def signflip_matmul_torch(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:

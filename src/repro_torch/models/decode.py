@@ -52,7 +52,8 @@ def _pack_matrix(w: torch.Tensor):
     The padding bytes decode past the logical width, where the kernels
     never read."""
     w_t, scale = ternarize(w)
-    packed = encoding.pad_packed_rows(encoding.pack_base3(w_t.T))
+    packed = encoding.pad_rows(encoding.pack_base3(w_t.T),
+                               encoding.PACKED_ROW_BYTES)
     return packed, scale.to(torch.bfloat16)
 
 

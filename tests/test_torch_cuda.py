@@ -550,9 +550,10 @@ def test_lut_grid_fills_the_card_at_bitnet_decode(cuda, fetch):
     and two where N >= 2560."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for k, n in [(2560, 640), (2560, 2560), (2560, 6912), (6912, 2560)]:
-        gx, gy, gz, threads = tlut.launch_grid(fetch == "onehot",
-                                               torch.bfloat16, 4, n, k,
-                                               -(-k // 3))
+        x, w = _case(48, 4, n, k)
+        xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+        _lut_once(fetch, xt, _served_keys(w, cuda))
+        gx, gy, gz, threads = LUT[fetch][0].last_grid
         assert gx * gy * gz >= (2 if n >= 2560 else 1) * sms, (k, n, gx, gy)
         assert threads in (32, 64, 128) and 1 <= gy <= 8
 

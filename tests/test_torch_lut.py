@@ -90,7 +90,8 @@ def test_plain_lut_on_unpadded_x_matches_padded_and_pallas(B, O, K, fetch,
     assert got.shape == (B, O) and got.dtype == torch.float32
     assert torch.equal(got, plain(torch.from_numpy(xp), torch.from_numpy(keys), 3))
     # the served keys (a padded-stride view) give the same result
-    served = tenc.pad_key_rows(torch.from_numpy(keys), 3)
+    served = tenc.pad_rows(torch.from_numpy(keys), tenc.KEY_ROW_BYTES,
+                           tenc.table_size(3))[:, :G]
     assert torch.equal(got, plain(torch.from_numpy(x), served, 3))
     want64 = x.astype(np.float64) @ w.T.astype(np.float64)
     if int8:
