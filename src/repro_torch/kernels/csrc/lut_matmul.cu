@@ -42,6 +42,11 @@
 //     first loads from a cold L2 (the timer flushes it) and the cluster
 //     reduction; the smallest call, 0.55 M keys, takes about 9 us on the
 //     card (PERF.md), 7 calls a layer.
+// On the card (PERF.md §6) neither kernel is near these ceilings: at M =
+// 4 the one-hot is held by its fragment work and the per-call cost, and
+// at M = 32 the gather takes about 2.5x its shared-memory ceiling, the
+// largest calls about 2x; what holds the rest is not measured (the
+// shared-memory rate itself has not been measured on the card).
 // The first design lost 140x to the key bytes: 5-54 blocks of 128
 // threads on 132 SMs, each walking all of K, byte-wide synchronous loads,
 // and 14 f32 FMAs per key and row for the one-hot.  This one:
@@ -94,13 +99,16 @@
 //    step as exact bf16 terms, slot n = q MT + b holding term q of row b
 //    (so at M = 4 the 3 terms of 4 rows fill 12 of two tiles' 16 slots),
 //    one accumulator tile per B tile and the terms summed at the end.
-//    Every x dtype feeds the same way: each f32 table entry, as the
-//    gather reads it, is split by truncation into hi + mid + lo (as
-//    signflip splits x), three exact bf16 terms that sum to it.  (A second
-//    feed for bf16 and int8 x, the entry's three signed x components, took
-//    as many terms and MMAs and was no faster on the card: PERF.md, PR
-//    18.)  +-1 times an exact term is exact, so the contraction is the
-//    same conditional add the TPU kernel runs on its MXU.
+//    bf16 and int8 x feed the entry's three signed x components d_q x_q,
+//    each exact in bf16: a word is one AND and one XOR of x_q with masks
+//    known at compile time.  f32 x, whose components would need three
+//    terms each, feeds each f32 entry split by truncation into hi + mid +
+//    lo (as signflip splits x).  The split feed alone would serve every
+//    dtype with as many terms and MMAs, but its longer table build made
+//    the one-hot 19% slower a layer at M = 4 and 24-32% at M = 32 on
+//    bf16 x (launch/lut_times.py on the H100; PERF.md §6).
+//    +-1 times an exact term is exact, so the contraction is the same
+//    conditional add the TPU kernel runs on its MXU.
 //
 // Ragged edges are masked: columns past N and rows past M compute on zero
 // keys or zero x and are not stored.
@@ -274,6 +282,26 @@ __device__ __forceinline__ int swz(int r, int c) {
   return c ^ ((r / (8 / CPR)) % CPR);
 }
 
+// bf16 masks of one table word (entries 2p, 2p + 1) in term q of the
+// component feed: keep the halves whose digit d_q is not 0, flip the sign
+// of those whose digit is -1
+__host__ __device__ constexpr uint32_t keep_mask(int q, int p) {
+  return (digit(2 * p, q) ? 0x0000FFFFu : 0u) | (digit(2 * p + 1, q) ? 0xFFFF0000u : 0u);
+}
+__host__ __device__ constexpr uint32_t flip_mask(int q, int p) {
+  return (digit(2 * p, q) < 0 ? 0x00008000u : 0u) |
+         (digit(2 * p + 1, q) < 0 ? 0x80000000u : 0u);
+}
+
+// the 8 words of term q from uu, x_q's bf16 bits in both halves; the
+// masks are constants of the compiled code
+template <int q, int... ps>
+__device__ __forceinline__ void component_words(std::integer_sequence<int, ps...>,
+                                                uint32_t uu, uint32_t* w) {
+  ((w[ps] = (uu & std::integral_constant<uint32_t, keep_mask(q, ps)>::value) ^
+            std::integral_constant<uint32_t, flip_mask(q, ps)>::value), ...);
+}
+
 // One block: columns [o0, o0 + BN), rows [m0, m0 + MT), the steps of split
 // blockIdx.y (a balanced share of ceil(G / SGS) steps of SGS groups).
 // Warp w owns columns BN / WN (w % WN) and the (w / WN)-th 16 groups of
@@ -381,19 +409,35 @@ lut_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ keys,
         const int j = e / MT, b = e % MT;
         if (b >= rows) continue;
         const T* xr = reinterpret_cast<const T*>(xs + b * XROW) + j * MU;
-        // each f32 entry split by truncation into hi + mid + lo
-        float ev[16];
-        table_row(to_f32<KIND>(xr[0]), to_f32<KIND>(xr[1]), to_f32<KIND>(xr[2]), ev);
-        ev[14] = ev[15] = 0.f;
         uint32_t w[3][8];
+        if constexpr (KIND == X_F32) {
+          // each f32 entry split by truncation into hi + mid + lo
+          float ev[16];
+          table_row(xr[0], xr[1], xr[2], ev);
+          ev[14] = ev[15] = 0.f;
 #pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          uint32_t h0, md0, l0, h1, md1, l1;
-          split3(ev[2 * p], h0, md0, l0);
-          split3(ev[2 * p + 1], h1, md1, l1);
-          w[0][p] = h0 | (h1 << 16);
-          w[1][p] = md0 | (md1 << 16);
-          w[2][p] = l0 | (l1 << 16);
+          for (int p = 0; p < 8; ++p) {
+            uint32_t h0, md0, l0, h1, md1, l1;
+            split3(ev[2 * p], h0, md0, l0);
+            split3(ev[2 * p + 1], h1, md1, l1);
+            w[0][p] = h0 | (h1 << 16);
+            w[1][p] = md0 | (md1 << 16);
+            w[2][p] = l0 | (l1 << 16);
+          }
+        } else {
+          // term q: the entries' signed x_q components d_q(t) x_q, exact
+          // in bf16 for bf16 and int8 x
+          uint32_t uu[3];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            uint32_t u;
+            if constexpr (KIND == X_BF16) u = xr[q];
+            else u = __float_as_uint(static_cast<float>(xr[q])) >> 16;
+            uu[q] = u | (u << 16);
+          }
+          component_words<0>(std::make_integer_sequence<int, 8>{}, uu[0], w[0]);
+          component_words<1>(std::make_integer_sequence<int, 8>{}, uu[1], w[1]);
+          component_words<2>(std::make_integer_sequence<int, 8>{}, uu[2], w[2]);
         }
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
