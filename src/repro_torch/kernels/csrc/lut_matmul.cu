@@ -19,14 +19,15 @@
 // (2560, 640) x2, (2560, 6912) x2, (6912, 2560) x1; 23.2 M keys):
 //   * bytes: the keys, one byte per group of 3 weights, 23.2 MB a layer:
 //     6.9 us at 3.35 TB/s, at every M;
-//   * the gather's shared-memory reads, as this design models them: one
-//     4-byte table entry per key and row, 4 M bytes a key, at 128 B/clk
-//     per SM (a warp's 64-bit read as two wavefronts; whether the card
-//     merges the duplicate entries of one read into fewer is not
-//     measured).  At the maximum SM clock (1.98 GHz on the H100 SXM:
-//     33.4 TB/s over 132 SMs; chip_smoke reads the clock each run) these
-//     reads take 11.1 us a layer at M = 4 and 89 us at M = 32, where they
-//     and not the bytes would bound it;
+//   * the gather's shared-memory reads: one 4-byte table entry per key
+//     and row, 4 M bytes a key, at 128 B/clk per SM.  Measured on the
+//     H100 for this read pattern (launch/smem_rate.py): 127.9 B/clk, a
+//     warp's 64-bit read taking two wavefronts though it names at most
+//     14 distinct entries (only a read of one entry by all 32 lanes is
+//     served in one), at an SM clock of about 1.99 GHz under load.  At
+//     the 1.98 GHz maximum (33.4 TB/s over 132 SMs; chip_smoke reads it
+//     each run) these reads take 11.1 us a layer at M = 4 and 89 us at
+//     M = 32, where they and not the bytes would bound it;
 //   * the one-hot's MMAs: mma.sync.m16n8k16 takes one group (16 entries)
 //     by 16 output columns by 8 (row, term) slots, 3 bf16 terms a row:
 //     2.9 M MMAs a layer at M = 4 (12 of 16 slots used), 17.4 M at M = 32,
@@ -45,8 +46,7 @@
 // On the card (PERF.md §6) neither kernel is near these ceilings: at M =
 // 4 the one-hot is held by its fragment work and the per-call cost, and
 // at M = 32 the gather takes about 2.5x its shared-memory ceiling, the
-// largest calls about 2x; what holds the rest is not measured (the
-// shared-memory rate itself has not been measured on the card).
+// largest calls about 2x; what holds the rest is not measured.
 // The first design lost 140x to the key bytes: 5-54 blocks of 128
 // threads on 132 SMs, each walking all of K, byte-wide synchronous loads,
 // and 14 f32 FMAs per key and row for the one-hot.  This one:
