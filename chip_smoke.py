@@ -149,10 +149,10 @@ SOURCES = {
                    "src/repro/kernels/lut_matmul.py:96", ARCH, 4, "bfloat16"),
     "tl2": ("src/repro_torch/kernels/csrc/tl2_matmul.cu",
             "src/repro/kernels/tl2_matmul.py:176", ARCH, 1, "bfloat16"),
-    "dequant_packed": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+    "dequant_packed": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                        "src/repro/kernels/dequant_matmul.py:59", ARCH, 4,
                        "bfloat16"),
-    "w2a8": ("src/repro_torch/kernels/csrc/w2a8_matmul.cu",
+    "w2a8": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
              "src/repro/kernels/w2a8_matmul.py:50", ARCH, 4, "int8"),
     "signflip": ("src/repro_torch/kernels/csrc/signflip_matmul.cu",
                  "src/repro/kernels/signflip_matmul.py:48", ARCH, 4,
@@ -167,8 +167,14 @@ SOURCES = {
 HAND_KERNELS = tuple(SOURCES)
 GROUPED_KERNELS = ("grouped_dequant", "grouped_w2a8")
 #: the CUDA sources, one nvcc each
-CUDA_SOURCES = ["lut_matmul", "tl2_matmul", "dequant_matmul", "w2a8_matmul",
-                "signflip_matmul", "grouped_matmul"]
+CUDA_SOURCES = ["lut_matmul", "tl2_matmul", "packed_matmul", "signflip_matmul",
+                "grouped_matmul"]
+#: the kernels whose per-layer times chip_smoke sets side by side (the
+#: packed kernels beside signflip, which does the same MMAs on 5x the
+#: bytes), at decode and prefill
+LAYER_ROWS = [(name, m, act) for m in (4, PREFILL_CHUNK)
+              for name, act in (("dequant_packed", "bfloat16"),
+                                ("w2a8", "int8"), ("signflip", "bfloat16"))]
 
 RECORD: dict = {}
 
@@ -293,12 +299,15 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
         Q = words.shape[1] * tl2.PAIRS_PER_WORD
         ops = m * n * Q + m * Q * 9          # fetch-accumulate + table build
     elif name == "dequant_packed":
-        kernel = lambda: deq.packed_matmul(x, packed, k)        # noqa: E731
+        fn = deq.packed_matmul
+        kernel = lambda: fn(x, packed, k)                       # noqa: E731
         plain = lambda: deq.packed_matmul_torch(x, packed, k)   # noqa: E731
         wbytes = packed_bytes                # the padding is never read
         ops = m * n * k
+        rate = BF16_OPS_PER_S       # the adds run on the bf16 tensor cores
     elif name == "w2a8":
-        kernel = lambda: w8.w2a8_matmul(x, packed, k)           # noqa: E731
+        fn = w8.w2a8_matmul
+        kernel = lambda: fn(x, packed, k)                       # noqa: E731
         plain = lambda: w8.w2a8_matmul_torch(x, packed, k)      # noqa: E731
         wbytes = packed_bytes
         ops = m * n * k
@@ -353,6 +362,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
     if ceiling is not None:
         row["ceiling_by"], row["ceiling_ms"] = ceiling
+    if name in ("lut_gather", "lut_onehot", "dequant_packed", "w2a8"):
         row["grid"] = fn.last_grid
     return row
 
@@ -883,6 +893,8 @@ def main() -> int:
     checked = set(cases)
     for c in lut_ceilings(rows):
         emit("lut_ceiling", **c)
+    for name, m, act in LAYER_ROWS:
+        emit("layer", kernel=name, **layer_summary(rows, name, ARCH, m, act))
 
     cfg, served = build_model(torch, ARCH)
     paths = {}

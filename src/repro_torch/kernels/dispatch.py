@@ -443,8 +443,8 @@ register_kernel(KernelSpec(
     name="dequant_packed", run=_run_dequant, act_dtypes=_ALL_DTYPES,
     kernel=packed_matmul, prior_per_mac=_per_mac_dequant,
     weight_bytes=_bytes_packed, grouped_variant="grouped_dequant",
-    describe="base-3 packed dequant CUDA kernel (1.6 b/w, div/mod-3 decode, "
-             "f32 multiply-add)"))
+    describe="base-3 packed dequant CUDA kernel (1.6 b/w, trits decoded "
+             "into bf16 tensor-core fragments, f32 sums)"))
 
 register_kernel(KernelSpec(
     name="signflip", run=_run_signflip, act_dtypes=_ALL_DTYPES,
@@ -457,8 +457,8 @@ register_kernel(KernelSpec(
     name="w2a8", run=_run_w2a8, act_dtypes=frozenset({"int8"}),
     kernel=w2a8_matmul, prior_per_mac=_per_mac_dequant,
     weight_bytes=_bytes_packed, grouped_variant="grouped_w2a8",
-    describe="W1.58A8 exact int8 x trit -> int32 CUDA kernel (dp4a); "
-             "requires pre-quantized int8 activations"))
+    describe="W1.58A8 exact int8 x trit -> int32 CUDA kernel (int8 tensor "
+             "cores); requires pre-quantized int8 activations"))
 
 register_kernel(KernelSpec(
     name="tl2", run=_run_tl2, act_dtypes=_ALL_DTYPES, kernel=tl2_matmul,

@@ -585,3 +585,180 @@ def test_lut_wrapper_reads_served_inputs_in_place(cuda, fetch, monkeypatch):
     tdispatch.ternary_matmul(xt, tw, policy=f"fixed:{name}")
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1 and seen == [True, True]
+
+
+# ---------------------------------------------------------------------------
+# dequant_packed and w2a8: base-3 bytes and x as served
+# ---------------------------------------------------------------------------
+
+PACKED = {"dequant": (tdeq.packed_matmul, tdeq.packed_matmul_torch),
+          "w2a8": (tw2a8.w2a8_matmul, tw2a8.w2a8_matmul_torch)}
+
+
+def _packed_once(kernel, x, packed, k):
+    """One kernel call; it must launch (and count) exactly once, and the
+    other packed kernel's count must not move."""
+    fn, _ = PACKED[kernel]
+    other = PACKED["w2a8" if kernel == "dequant" else "dequant"][0]
+    n0, o0 = fn.launches, other.launches
+    got = fn(x, packed, k)
+    assert fn.launches == n0 + 1 and other.launches == o0
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], packed.shape[0])
+    assert got.dtype == (torch.float32 if kernel == "dequant" else torch.int32)
+    return got
+
+
+def _packed_x(kernel, x: np.ndarray, dtype: str, device):
+    xt = torch.from_numpy(x).to(device)
+    return xt if kernel == "w2a8" else xt.to(getattr(torch, dtype))
+
+
+# bitnet's four projection shapes at decode and prefill, and ragged ones
+PACKED_SHAPES = [(4, 640, 2560), (4, 2560, 2560), (4, 6912, 2560),
+                 (4, 2560, 6912), (32, 2560, 2560), (32, 6912, 2560),
+                 (32, 2560, 6912), (3, 37, 50), (9, 130, 301)]
+
+
+@pytest.mark.parametrize("B,O,K", PACKED_SHAPES)
+def test_dequant_kernel_on_f32_x_bf16_cannot_hold(cuda, B, O, K):
+    """f32 x whose values need all 24 bits: the kernel feeds each as three
+    exact bf16 terms."""
+    x, w = _case(50, B, O, K)
+    xt = torch.from_numpy(x).to(cuda)
+    assert not torch.equal(xt, xt.to(torch.bfloat16).float())
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    got = _packed_once("dequant", xt, packed, K)
+    want = tdeq.packed_matmul_torch(xt, packed, K)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", PACKED_SHAPES)
+def test_dequant_kernel_on_bf16_x(cuda, B, O, K):
+    x, w = _case(51, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    got = _packed_once("dequant", xt, packed, K)
+    want = tdeq.packed_matmul_torch(xt, packed, K)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", PACKED_SHAPES)
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_packed_kernel_exact_on_int8_x(cuda, kernel, B, O, K):
+    """int8 x: w2a8 sums in int32, dequant_packed sums integers below 2^24
+    in f32; both equal the int64 product, and w2a8 its plain version."""
+    x, w = _case(52, B, O, K, int8=True)
+    xt = torch.from_numpy(x).to(cuda)
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    got = _packed_once(kernel, xt, packed, K)
+    want = x.astype(np.int64) @ w.T.astype(np.int64)
+    assert torch.equal(got.cpu().to(torch.int64), torch.from_numpy(want))
+    if kernel == "w2a8":
+        assert torch.equal(got, tw2a8.w2a8_matmul_torch(xt, packed, K))
+
+
+@pytest.mark.parametrize("K", [50, 301, 2560, 4096, 6912])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 33])
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_packed_kernel_ragged_rows(cuda, kernel, B, K):
+    """Every row tile (8, 16, 32 rows, and more as the grid's z) with M
+    past its edge; K = 6912 is not a multiple of 5, so its last byte is
+    partial."""
+    x, w = _case(53, B, 640, K, int8=kernel == "w2a8")
+    xt = _packed_x(kernel, x, "bfloat16", cuda)
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    got = _packed_once(kernel, xt, packed, K)
+    want = PACKED[kernel][1](xt, packed, K)
+    if kernel == "w2a8":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("K", [2560, 6912, 301, 50])
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_packed_kernel_reads_rows_at_any_stride(cuda, kernel, K):
+    """The served rows (padded to 128 bytes), unpadded rows (not 16-byte
+    aligned where ceil(K/5) % 16 != 0: copied by the wrapper), rows at an
+    odd stride, and x zero-padded past K all give the same sums, bit for
+    bit."""
+    x, w = _case(54, 4, 640, K, int8=kernel == "w2a8")
+    xt = _packed_x(kernel, x, "bfloat16", cuda)
+    wt = torch.from_numpy(w).to(cuda)
+    unpadded = tenc.pack_base3(wt)
+    NB = unpadded.shape[1]
+    odd = torch.full((640, NB + 3), 7, dtype=torch.uint8, device=cuda)
+    odd[:, :NB] = unpadded
+    served = _served_packed(wt)
+    got = _packed_once(kernel, xt, served, K)
+    assert torch.equal(got, _packed_once(kernel, xt, unpadded, K))
+    assert torch.equal(got, _packed_once(kernel, xt, odd[:, :NB], K))
+    xp = torch.nn.functional.pad(xt, (0, 5 * NB - K))
+    assert torch.equal(got, _packed_once(kernel, xp, served, K))
+    want = PACKED[kernel][1](xt, served, K)
+    if kernel == "w2a8":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("B,O,K", [(4, 640, 2560), (4, 2560, 6912),
+                                   (32, 6912, 2560), (9, 130, 301)])
+@pytest.mark.parametrize("kernel,dtype", [("dequant", "float32"),
+                                          ("dequant", "bfloat16"),
+                                          ("w2a8", "int8")])
+def test_packed_kernel_is_deterministic(cuda, kernel, dtype, B, O, K):
+    """Split-K partials are summed in split order, with no atomics: two
+    calls on the same inputs agree bit for bit."""
+    x, w = _case(55, B, O, K, int8=dtype == "int8")
+    xt = _packed_x(kernel, x, dtype, cuda)
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    assert torch.equal(_packed_once(kernel, xt, packed, K),
+                       _packed_once(kernel, xt, packed, K))
+
+
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_packed_grid_fills_the_card_at_bitnet_decode(cuda, kernel):
+    """At M = 4 every bitnet projection launches at least one block per SM,
+    and two where N >= 2560."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in [(2560, 640), (2560, 2560), (2560, 6912), (6912, 2560)]:
+        x, w = _case(56, 4, n, k, int8=kernel == "w2a8")
+        xt = _packed_x(kernel, x, "bfloat16", cuda)
+        _packed_once(kernel, xt, _served_packed(torch.from_numpy(w).to(cuda)), k)
+        gx, gy, gz, threads = PACKED[kernel][0].last_grid
+        assert gx * gy * gz >= (2 if n >= 2560 else 1) * sms, (k, n, gx, gy)
+        assert threads == 128 and 1 <= gy <= 8 and gz == 1
+
+
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_packed_wrapper_reads_served_inputs_in_place(cuda, kernel, monkeypatch):
+    """bf16 (or int8) x and the served 128-byte padded rows reach the
+    kernel through dispatch with no cast or copy, and a CUDA tensor never
+    takes the plain version."""
+    def boom(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tdeq, "packed_matmul_torch", boom)
+    monkeypatch.setattr(tw2a8, "w2a8_matmul_torch", boom)
+    rows = tdeq.aligned_rows
+    seen = []
+
+    def recording(t):
+        got, ld = rows(t)
+        seen.append(got.data_ptr() == t.data_ptr() and got.dtype == t.dtype)
+        return got, ld
+
+    monkeypatch.setattr(tdeq, "aligned_rows", recording)
+    x, w = _case(57, 4, 640, 6912, int8=kernel == "w2a8")
+    xt = _packed_x(kernel, x, "bfloat16", cuda)
+    packed = _served_packed(torch.from_numpy(w).to(cuda))
+    tw = tdispatch.TernaryWeight.from_packed(packed, 1.0, 6912)
+    fn = PACKED[kernel][0]
+    n0 = fn.launches
+    name = "dequant_packed" if kernel == "dequant" else "w2a8"
+    got = tdispatch.ternary_matmul(xt, tw, policy=f"fixed:{name}")
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and seen == [True, True]
+    assert got.shape == (4, 640)
