@@ -170,11 +170,14 @@ GROUPED_KERNELS = ("grouped_dequant", "grouped_w2a8")
 CUDA_SOURCES = ["lut_matmul", "tl2_matmul", "packed_matmul", "signflip_matmul",
                 "grouped_matmul"]
 #: the kernels whose per-layer times chip_smoke sets side by side (the
-#: packed kernels beside signflip, which does the same MMAs on 5x the
-#: bytes), at decode and prefill
+#: packed kernels and tl2 at int8 beside signflip, which does the same MMAs
+#: on 5x the bytes), at decode and prefill; and tl2 at bf16 batch-1 and
+#: batch-2 decode
 LAYER_ROWS = [(name, m, act) for m in (4, PREFILL_CHUNK)
               for name, act in (("dequant_packed", "bfloat16"),
-                                ("w2a8", "int8"), ("signflip", "bfloat16"))]
+                                ("w2a8", "int8"), ("tl2", "int8"),
+                                ("signflip", "bfloat16"))] + \
+    [("tl2", m, "bfloat16") for m in (1, 2)]
 
 RECORD: dict = {}
 
@@ -292,12 +295,16 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
             ceiling = ("shared memory",
                        4 * m * n * G / smem_bytes_per_s(torch) * 1e3)
     elif name == "tl2":
+        # as served: x of the logical width, the weight's words view (rows
+        # padded to 16 bytes), neither copied
         words = w.tl2()
-        kernel = lambda: tl2.tl2_matmul(x, words, k)            # noqa: E731
+        fn = tl2.tl2_matmul
+        kernel = lambda: fn(x, words, k)                        # noqa: E731
         plain = lambda: tl2.tl2_matmul_torch(x, words, k)       # noqa: E731
-        wbytes = words.numel() * words.element_size()
-        Q = words.shape[1] * tl2.PAIRS_PER_WORD
-        ops = m * n * Q + m * Q * 9          # fetch-accumulate + table build
+        wbytes = words.numel() * words.element_size()   # padding never read
+        ops = m * n * k
+        # the adds run on the tensor cores: s8 for int8 x, else bf16
+        rate = INT8_OPS_PER_S if act == "int8" else BF16_OPS_PER_S
     elif name == "dequant_packed":
         fn = deq.packed_matmul
         kernel = lambda: fn(x, packed, k)                       # noqa: E731
@@ -362,7 +369,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
     if ceiling is not None:
         row["ceiling_by"], row["ceiling_ms"] = ceiling
-    if name in ("lut_gather", "lut_onehot", "dequant_packed", "w2a8"):
+    if name in ("lut_gather", "lut_onehot", "tl2", "dequant_packed", "w2a8"):
         row["grid"] = fn.last_grid
     return row
 
@@ -402,7 +409,8 @@ def selected_cases(model: str, selection: dict, act: str) -> set:
 
 def kernel_cases(model: str) -> list[tuple]:
     """``(model, kernel, M or C, act)`` to check before serving ``model``:
-    bitnet's decode points at batch 4, 1, 2 and int8 batch 4, each dense
+    bitnet's decode points at batch 4, 1, 2 and int8 batch 4 (``tl2`` at
+    int8 also at the prefill chunk, M=32), each dense
     kernel ported after the first slice at decode (M=4) and prefill (M=32);
     phi3.5-moe's grouped kernels at decode (C=1) and at the admission chunk
     (C=5); plus every one that a prior or pinned serving path selects."""
@@ -412,7 +420,7 @@ def kernel_cases(model: str) -> list[tuple]:
                  (ARCH, "lut_onehot", 4, "bfloat16"),
                  (ARCH, "lut_onehot", 32, "bfloat16"),
                  (ARCH, "tl2", 1, "bfloat16"), (ARCH, "tl2", 2, "bfloat16"),
-                 (ARCH, "tl2", 4, "int8")}
+                 (ARCH, "tl2", 4, "int8"), (ARCH, "tl2", 32, "int8")}
         for policy, act in PINNED.values():
             cases |= selected_cases(ARCH, path_selection(ARCH, 4, act,
                                                          policy), act)

@@ -116,10 +116,11 @@ KEY_ROW_BYTES = 16
 def pad_rows(t: torch.Tensor, row_bytes: int, value: int = 0) -> torch.Tensor:
     """``t [..., n]`` with each row padded to a multiple of ``row_bytes``
     bytes, the padding holding ``value``: the serving artifact's base-3
-    rows (:data:`PACKED_ROW_BYTES`, zeros) and the served LUT keys' rows
-    (:data:`KEY_ROW_BYTES`, the zero key).  The padding lies past the
-    logical width, where the kernels never read.  Rows already that long
-    are returned as they are."""
+    rows (:data:`PACKED_ROW_BYTES`, zeros), the served LUT keys' rows
+    (:data:`KEY_ROW_BYTES`, the zero key) and the served TL2 words' rows
+    (``tl2_matmul.ROW_BYTES``, the zero-trit word).  The padding lies past
+    the logical width, where the kernels never read.  Rows already that
+    long are returned as they are."""
     pad = (-t.shape[-1]) % (row_bytes // t.element_size())
     return torch.nn.functional.pad(t, (0, pad), value=value) if pad else t
 

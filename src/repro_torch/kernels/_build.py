@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them by ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
-an edited source rebuilds).  Builds happen on first use, never at import;
+``_build/lib<name>-<hash>.so`` (the hash covers the source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header
+rebuilds).  Builds happen on first use, never at import;
 :func:`build_all` starts one ``nvcc`` per source at once.  A failed build
 raises with the compiler's output.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,9 +41,31 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source on first use")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(src: Path) -> list[Path]:
+    """``src`` and every file it includes by a quoted ``#include`` that
+    lies beside it (the shared headers under ``csrc/``), transitively, in
+    the order first met."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [p for p in (path.parent / m.decode()
+                             for m in _INCLUDE.findall(path.read_bytes()))
+                 if p.is_file()]
+    return found
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources(src):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

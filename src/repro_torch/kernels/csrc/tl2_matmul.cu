@@ -1,151 +1,106 @@
-// TL2 two-trit LUT ternary matmul for Hopper (sm_90a).
+// TL2 ternary matmul for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/tl2_matmul.py::tl2_matmul
 // (body _tl2_kernel; registry name tl2):
 //   y[b, o] = sum_q table[b, q, digit(o, q)]
 //   table[b, q, d] = (d/3 - 1) * x[b, 2q] + (d%3 - 1) * x[b, 2q + 1]
-// where trit pairs are base-9 digits, five per 16-bit word
-// (word = sum_p d_p * 9^p, 1.6 bits per weight), f32 accumulation.
+// where trit pairs are base-9 digits, five per 16-bit word (word = sum_p
+// d_p * 9^p, 1.6 bits a weight), f32 sums.  That is y[b, o] = sum_k x[b,
+// k] * trit(o, k), unscaled: the TPU kernel's tables and one-hot fetch
+// only pick each pair's sum, and multiplying x by a trit decoded to +1, 0
+// or -1 on the tensor cores is the same add, subtract or skip.
 //
-// What bounds it on the H100: at decode M the work is a stream over the
-// weight words (2 bytes per 10 weights) against five table reads per word
-// and row, so the word bytes over the 3.35 TB/s memory rate are the floor.
-// This first design is simple and right rather than fast:
-//   * one block per (128 outputs, BB activation rows), BB the smallest of
-//     1, 2, 4, 8 that covers M; the reduction over words is a loop inside
-//     the block;
-//   * per step of BW words (5*BW pairs; BW = 64, 64, 32, 16 for BB = 1, 2,
-//     4, 8, so the tables stay near 23 KB) the block stages the x slice in
-//     shared memory with coalesced loads, builds the [BB, 5*BW, 9] f32 pair
-//     tables there, and stages the [128, BW] word tile (row stride BW+2
-//     halfwords, an odd word count, so the per-thread word reads hit
-//     distinct banks), each with unrolled loads so a thread's loads are in
-//     flight together;
-//   * each thread owns one output column, decodes each word into its five
-//     digits by div/mod 9 and accumulates table[b][q][d] in registers.
-// Word 0 decodes to (-1, -1) pairs, so the tail is masked by W (the loop
-// never visits a word past W) rather than padded, and the caller zero-pads x
-// to W*10 columns.  With int8 activations every table entry and partial sum
-// is an integer below 2^24, so the result is exact.
-// Known limits, for the later work that makes it fast: only N/128 blocks at
-// decode, each a single 4-warp block with the whole K loop (latency-bound);
-// words re-read once per BB-row tile at prefill; the div/mod-9 decode on
-// the fetch path.
+// What bounds it on the H100.  A bitnet layer, (K, N) in {(2560, 2560)
+// x2, (2560, 640) x2, (2560, 6912) x2, (6912, 2560)}, is 69.5 M trits in
+// 13.9 MB of words: 4.2 us at 3.35 TB/s, the bound at M = 1, 2, 4 and 32
+// (as m16n8k16 bf16 MMAs on 8-row tiles its adds take 1.1 us at the 989
+// TFLOP/s peak for any M <= 8, 4.5 us at M = 32; as s8 MMAs half).  The real
+// work is the decode, and under it the per-call floor: no call on the
+// cold-L2 timer takes much under 9 us, so seven calls cost about 63 us a
+// layer whatever the kernel does.  A first design lost 4.9x to the bf16
+// matmul on decoded weights at M = 1: 5-54 blocks of 128 threads each
+// walking all of K, synchronous 2-byte word and f32 x loads, f32 pair
+// tables built per block and step, and five div / mod 9 a word.
+//
+// The design is ternary_mma.cuh's (packed_matmul.cu runs it on base-3
+// bytes): a full-card grid with K split in a thread-block cluster and
+// summed in split order (two calls are bitwise equal), a 16-byte cp.async
+// ring of words and x read at their strides, and swap-AB mma.sync with
+// the trits as A: m16n8k16 bf16 with f32 sums for bf16 x, and for f32 x
+// three bf16 terms by truncation; m16n8k32 s8 with exact int32 sums for
+// int8 x, converted to f32 as they are stored (|sum| <= 127 K < 2^24).
+// x comes as it is (f32, bf16 or int8, K wide; staged as zero past K, so
+// the last word's spare trits and the zero-filled rest of a chunk add
+// nothing), and the words as served, rows padded to 16 bytes with the
+// word of ten zero trits.  A TL2 word holds five trits a byte, as base-3
+// bytes do, so a warp's 32 bytes are 160 trits and the grid, ring and
+// fragment layout carry over unchanged.
+//
+// The encoding, decoded with no division.  A word is the 10-digit base-3
+// number v = sum_p ((t_2p + 1) 3 + (t_2p+1 + 1)) 9^p: trit k is base-3
+// digit k ^ 1 (each pair swapped).  v < 59049, and v / 243 = (v * 69043)
+// >> 24 exactly for every such v (checked on the CPU), so one IMAD.HI a
+// word (69043 * 2^8 as the high-word multiplier) and one PRMT put the two
+// words' high halves hi = v / 243 (digits 5-9) in the 16-bit lanes of one
+// register, and one IMAD makes lo = w - 243 hi (digits 0-4) in the lanes
+// of another, with no borrow between them.  Both are below 243, as a
+// base-3 byte is, and the digits come out four instructions for two.  The
+// pair swap costs nothing: trit L of the 32-bit word is digit (L % 10) ^ 1
+// of its word, and the byte permutes that gather digits into fragments
+// take it from plane ((L % 10) ^ 1) / 5, so B stays contiguous runs of x.
+// The compiled loop of the 4 x 16-column layout at one 8-row tile (4
+// words a lane a step; python -m repro_torch.launch.sass_count --source
+// tl2_matmul) holds 656 instructions for bf16 and 581 for s8, 18 more than
+// packed_matmul.cu's same loops (638 and 563): 4.5 a word (PRMT 84 for
+// 80, IMAD 254 for 240), so about 69.5 integer instructions a bf16 word
+// and 64.5 an s8 word as packed_matmul.cu counts them, 3.5 and 3.2 a trit.
+// Registers: 86-128 a thread and no spills (ptxas).
+// (tl2_matmul.fragment_digits models which digit of which word A reads for
+// each k slot; the CPU tests check that A and B take the same K order and
+// that the recipe gives unpack_tl2's trits for every word value.)
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ternary_mma.cuh"
 
 namespace {
 
-constexpr int BO = 128;    // output columns per block == threads
-constexpr int PAIRS = 5;   // base-9 digits per word
-
-template <int BB>
-__global__ void __launch_bounds__(BO)
-tl2_kernel(const float* __restrict__ x, const uint16_t* __restrict__ words,
-           float* __restrict__ out, int M, int N, int W) {
-  constexpr int BW = BB >= 8 ? 16 : (BB == 4 ? 32 : 64);  // words per step
-  constexpr int BQ = BW * PAIRS;                           // pairs per step
-  constexpr int WSTRIDE = BW + 2;                          // staged row stride
-  __shared__ float xs[BB * BQ * 2];         // [BB][BQ][2]
-  __shared__ float tables[BB * BQ * 9];     // [BB][BQ][9]
-  __shared__ uint16_t ws[BO * WSTRIDE];     // [BO][BW + 2]
-
-  const int tid = threadIdx.x;
-  const int o0 = blockIdx.x * BO;
-  const int b0 = blockIdx.y * BB;
-  const int o = o0 + tid;
-  const int nb = min(BB, M - b0);
-  const size_t K = static_cast<size_t>(W) * 2 * PAIRS;
-
-  float acc[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) acc[b] = 0.f;
-
-  for (int w0 = 0; w0 < W; w0 += BW) {
-    const int nw = min(BW, W - w0);
-    // stage the x slice and the word tile, with unrolled loads so a
-    // thread's loads are in flight together; rows past M and words past W
-    // read as zero
-#pragma unroll
-    for (int i = 0; i < (BB * BQ * 2 + BO - 1) / BO; ++i) {
-      const int e = tid + i * BO;
-      if (e < BB * BQ * 2) {
-        const int b = e / (BQ * 2);
-        const int c = e % (BQ * 2);
-        xs[e] = (b < nb && c < nw * PAIRS * 2)
-            ? x[(b0 + b) * K + static_cast<size_t>(w0) * PAIRS * 2 + c] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < BW; ++i) {
-      const int e = tid + i * BO;
-      const int r = e / BW;
-      const int c = e % BW;
-      const int oo = o0 + r;
-      ws[r * WSTRIDE + c] = (oo < N && c < nw)
-          ? words[static_cast<size_t>(oo) * W + w0 + c] : 0;
-    }
-    __syncthreads();
-    // build phase: 9-entry table per trit pair
-    for (int e = tid; e < BB * BQ * 9; e += BO) {
-      const int d = e % 9;
-      const float* xr = xs + (e / 9) * 2;
-      const int t0 = d / 3 - 1;
-      const int t1 = d % 3 - 1;
-      float s = 0.f;
-      if (t0 > 0) s += xr[0];
-      else if (t0 < 0) s -= xr[0];
-      if (t1 > 0) s += xr[1];
-      else if (t1 < 0) s -= xr[1];
-      tables[e] = s;
-    }
-    __syncthreads();
-    // fetch phase: five div/mod-9 digits per word, one table read per row
-    if (o < N) {
-      const uint16_t* wr = ws + tid * WSTRIDE;
-#pragma unroll 4
-      for (int w = 0; w < nw; ++w) {
-        unsigned v = wr[w];
-#pragma unroll
-        for (int p = 0; p < PAIRS; ++p) {
-          const unsigned d = v % 9u;
-          v /= 9u;
-          const float* tq = tables + (w * PAIRS + p) * 9 + d;
-#pragma unroll
-          for (int b = 0; b < BB; ++b) acc[b] += tq[b * BQ * 9];
-        }
-      }
-    }
-    __syncthreads();
+// TL2 words: trit L of a 32-bit word (two words, ten trits each) is base-3
+// digit (L % 10) ^ 1 of word L / 10; digits 0-4 of each word in plane 0,
+// digits 5-9 in plane 1, the word's 16-bit lane = byte 2 (L / 10).
+struct TL2 {
+  static constexpr int UNIT_BYTES = 2;
+  static __device__ __forceinline__ void planes(uint32_t w, uint32_t (&d)[2][5]) {
+    // v / 243 = (v * 69043) >> 24 = umulhi(v, 69043 << 8) for v < 59049
+    const uint32_t hi = prmt(__umulhi(w & 0xFFFFu, 69043u << 8),
+                             __umulhi(w >> 16, 69043u << 8), 0x5410u);
+    digits(w - 243u * hi, d[0]);
+    digits(hi, d[1]);
   }
-  if (o < N) {
-#pragma unroll
-    for (int b = 0; b < BB; ++b)
-      if (b < nb) out[static_cast<size_t>(b0 + b) * N + o] = acc[b];
-  }
-}
-
-template <int BB>
-void launch(const void* x, const void* words, void* out, int M, int N, int W,
-            cudaStream_t stream) {
-  dim3 grid((N + BO - 1) / BO, (M + BB - 1) / BB);
-  tl2_kernel<BB><<<grid, BO, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const uint16_t*>(words),
-      static_cast<float*>(out), M, N, W);
-}
+  static __host__ __device__ constexpr int plane(int L) { return ((L % 10) ^ 1) / 5; }
+  static __host__ __device__ constexpr int digit(int L) { return ((L % 10) ^ 1) % 5; }
+};
 
 }  // namespace
 
-// x: [M, W*10] f32 (zero-padded past the logical K); words: [N, W] 16-bit
-// TL2 words (held as int16 by the caller, read here as unsigned);
-// out: [M, N] f32, unscaled.  Launches on `stream`; returns the launch error.
-extern "C" int tl2_matmul_f32(const void* x, const void* words, void* out,
-                              int M, int N, int W, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 1) launch<1>(x, words, out, M, N, W, s);
-  else if (M <= 2) launch<2>(x, words, out, M, N, W, s);
-  else if (M <= 4) launch<4>(x, words, out, M, N, W, s);
-  else launch<8>(x, words, out, M, N, W, s);
-  return static_cast<int>(cudaGetLastError());
+// x: [M, K] with row stride ldx (elements), K the width of x (K <= 10 W;
+// columns past the weight's logical width are zero); x_kind 0 = f32, 1 =
+// bf16, 2 = int8.  words: [N, W] 16-bit TL2 words (held as int16 by the
+// caller, read here as unsigned) with row stride ldw (words; the served
+// rows are padded to 16 bytes).  out: [M, N] f32, unscaled.  Rows start
+// 16-byte aligned (pointers and strides).  Launch on `stream`; where
+// `grid` is not null, write the grid launched to it (column tiles, K
+// splits, row tiles, threads a block).  Return the launch error (0 on
+// success).
+extern "C" int tl2_matmul_f32(const void* x, int x_kind, const void* words,
+                              void* out, int M, int N, int K, int W,
+                              long long ldx, long long ldw, void* stream,
+                              int* grid) {
+  if (W <= 0 || W > (1 << 29)) return static_cast<int>(cudaErrorInvalidValue);
+  const int NB = 2 * W;
+  const long long ldb = 2 * ldw;
+  switch (x_kind) {
+    case X_F32: return call<TL2, X_F32>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
+    case X_BF16: return call<TL2, X_BF16>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
+    case X_I8: return call<TL2, S8_F32>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

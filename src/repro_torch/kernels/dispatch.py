@@ -64,9 +64,11 @@ from repro_torch.kernels.grouped_matmul import (grouped_packed_matmul,
                                                 grouped_w2a8_matmul)
 from repro_torch.kernels.lut_matmul import lut_matmul, lut_onehot_matmul
 from repro_torch.kernels.signflip_matmul import signflip_matmul
+from repro_torch.kernels.tl2_matmul import ROW_BYTES as TL2_ROW_BYTES
 from repro_torch.kernels.tl2_matmul import (TRITS_PER_WORD, pack_tl2,
                                             repack_base3_to_tl2, tl2_matmul,
                                             tl2_matmul_torch)
+from repro_torch.kernels.tl2_matmul import ZERO_WORD as TL2_ZERO_WORD
 from repro_torch.kernels.w2a8_matmul import w2a8_matmul
 
 CACHE_PATH_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
@@ -160,10 +162,14 @@ class TernaryWeight:
         return self._keys[mu]
 
     def tl2(self) -> torch.Tensor:
-        """TL2 words ``[N, ceil(K/10)]`` held as int16 (tl2 path)."""
+        """TL2 words ``[N, ceil(K/10)]`` held as int16 (tl2 path): one
+        view, kept, of rows padded to :data:`tl2_matmul.ROW_BYTES` with the
+        word of ten zero trits, which the tl2 kernel reads in place."""
         if self._tl2 is None:
-            self._tl2 = (repack_base3_to_tl2(self._packed, self._k)
-                         if self._w_t is None else pack_tl2(self._w_t))
+            words = (repack_base3_to_tl2(self._packed, self._k)
+                     if self._w_t is None else pack_tl2(self._w_t))
+            self._tl2 = encoding.pad_rows(
+                words, TL2_ROW_BYTES, TL2_ZERO_WORD)[:, :words.shape[1]]
         return self._tl2
 
 

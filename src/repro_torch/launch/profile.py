@@ -75,7 +75,7 @@ def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "hand_kernel_launches_per_step": {
             k: v / steps for k, v in launch_counts().items()},
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
+        "top_kernels": [{"name": e.key[:160], "count": e.count,
                          "ms_per_step": _self_device_us(e) / steps / 1e3}
                         for e in top],
     }

@@ -6,12 +6,15 @@ name contains one of ``--match``, counts the opcodes between the target
 and the source of its longest backward branch (the main K loop).  One
 JSON line per kernel: the loop's instruction count, its integer-pipe
 count (IMAD, PRMT, LOP3, SHF, IADD3, ...), its MMAs, and the opcode
-histogram.  Used for the packed kernels' decode cost: their
-``packed_kernel<MODE, NT, WN, RT>`` instantiations are matched by the
-mangled ``ILi<MODE>ELi<NT>ELi<WN>ELi<RT>E``.
+histogram.  Used for the decode cost of the kernels on
+``csrc/ternary_mma.cuh``: their ``packed_kernel<MODE, NT, WN, RT, Enc>``
+instantiations are matched by the mangled ``ILi<MODE>ELi<NT>ELi<WN>ELi<RT>E``.
+By default the 4 x 16-column layout at one 8-row tile: ``packed_matmul``'s
+bf16 (mode 1) and s8 (mode 3, ``w2a8``) loops, ``tl2_matmul``'s bf16 (mode
+1) and s8 (mode 4) loops.
 
 Usage (on a machine with the CUDA toolkit):
-  python -m repro_torch.launch.sass_count [--source packed_matmul] \\
+  python -m repro_torch.launch.sass_count [--source packed_matmul|tl2_matmul] \\
       [--match ILi1ELi1ELi4ELi1E ILi3ELi1ELi4ELi1E]
 """
 
@@ -26,6 +29,9 @@ import subprocess
 
 INTEGER = {"IMAD", "IADD3", "LOP3", "SHF", "PRMT", "IMUL", "LEA", "ISETP",
            "SEL", "IMNMX", "VIADD", "VIMNMX", "BFE", "SGXT"}
+#: per source, the instantiations counted by default (see above)
+DEFAULT_MATCH = {"packed_matmul": ["ILi1ELi1ELi4ELi1E", "ILi3ELi1ELi4ELi1E"],
+                 "tl2_matmul": ["ILi1ELi1ELi4ELi1E", "ILi4ELi1ELi4ELi1E"]}
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
@@ -55,9 +61,10 @@ def loop_counts(sass: str) -> dict:
 def main(argv: list[str] | None = None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", default="packed_matmul")
-    ap.add_argument("--match", nargs="+",
-                    default=["ILi1ELi1ELi4ELi1E", "ILi3ELi1ELi4ELi1E"])
+    ap.add_argument("--match", nargs="+", default=None)
     args = ap.parse_args(argv)
+    if args.match is None:
+        args.match = DEFAULT_MATCH[args.source]
     from repro_torch.kernels import _build
 
     _build.build_all([args.source])

@@ -762,3 +762,156 @@ def test_packed_wrapper_reads_served_inputs_in_place(cuda, kernel, monkeypatch):
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1 and seen == [True, True]
     assert got.shape == (4, 640)
+
+
+# ---------------------------------------------------------------------------
+# tl2: TL2 words and x as served
+# ---------------------------------------------------------------------------
+
+
+def _tl2_once(x, words, k):
+    """One kernel call; it must launch (and count) exactly once."""
+    n0 = ttl2.tl2_matmul.launches
+    got = ttl2.tl2_matmul(x, words, k)
+    assert ttl2.tl2_matmul.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], words.shape[0])
+    assert got.dtype == torch.float32
+    return got
+
+
+def _served_words(w: np.ndarray, device) -> torch.Tensor:
+    """The words as a served weight holds them: a view of rows padded to
+    16 bytes with the zero-trit word."""
+    wt = torch.from_numpy(w).to(device)
+    return tdispatch.TernaryWeight.from_ternary(wt).tl2()
+
+
+def _tl2_held(got, x, w, words, k):
+    """Float x within the f32 tolerance of the plain version; int8 x equal
+    to the int64 product and to the plain version."""
+    if x.dtype == torch.int8:
+        want = x.cpu().to(torch.int64) @ torch.from_numpy(w).to(torch.int64).T
+        assert torch.equal(got.cpu().to(torch.int64), want)
+        assert torch.equal(got, ttl2.tl2_matmul_torch(x, words, k))
+    else:
+        want = ttl2.tl2_matmul_torch(x, words, k)
+        assert float((got - want).abs().max()) <= _atol(x)
+
+
+# bitnet's projections at batch-1 and batch-2 decode (bf16 x), at the int8
+# path's decode (M = 4) and prefill (M = 32), and ragged ones
+TL2_SHAPES = [(1, 2560, 2560), (1, 640, 2560), (1, 6912, 2560),
+              (1, 2560, 6912), (2, 2560, 6912), (4, 6912, 2560),
+              (32, 2560, 6912), (32, 6912, 2560), (3, 37, 50), (9, 130, 301)]
+
+
+@pytest.mark.parametrize("B,O,K", TL2_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_tl2_kernel_on_served_words(cuda, dtype, B, O, K):
+    """Every x dtype as it comes against the served words; f32 x whose
+    values need all 24 bits takes the three-term split."""
+    x, w = _case(60, B, O, K, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    if dtype == "float32":
+        assert not torch.equal(xt, xt.to(torch.bfloat16).float())
+    words = _served_words(w, cuda)
+    _tl2_held(_tl2_once(xt, words, K), xt, w, words, K)
+
+
+@pytest.mark.parametrize("K", [97, 301, 6912])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 32, 33])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_tl2_kernel_ragged(cuda, dtype, B, K):
+    """Every row tile (8, 16, 32 rows, and more as the grid's z) with M
+    past its edge; K not a multiple of 10, so the last word is partial."""
+    x, w = _case(61, B, 640, K, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    words = _served_words(w, cuda)
+    _tl2_held(_tl2_once(xt, words, K), xt, w, words, K)
+
+
+@pytest.mark.parametrize("K", [97, 301, 2560, 6912])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_tl2_kernel_reads_words_at_any_stride(cuda, dtype, K):
+    """The served words (a view of rows padded to 16 bytes), contiguous
+    unpadded words (rows not 16-byte aligned where ceil(K/10) % 8 != 0:
+    copied by the wrapper), words at an odd stride, and x zero-padded to
+    10 W columns all give the same sums, bit for bit."""
+    x, w = _case(62, 4, 640, K, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    served = _served_words(w, cuda)
+    W = served.shape[1]
+    contiguous = ttl2.pack_tl2(torch.from_numpy(w).to(cuda))
+    odd = torch.full((640, W + 3), 12345, dtype=torch.int16, device=cuda)
+    odd[:, :W] = contiguous
+    got = _tl2_once(xt, served, K)
+    assert torch.equal(got, _tl2_once(xt, contiguous, K))
+    assert torch.equal(got, _tl2_once(xt, odd[:, :W], K))
+    xp = torch.nn.functional.pad(xt, (0, 10 * W - K))
+    assert torch.equal(got, _tl2_once(xp, served, K))
+    _tl2_held(got, xt, w, served, K)
+
+
+@pytest.mark.parametrize("B,O,K", [(1, 640, 2560), (1, 2560, 6912),
+                                   (32, 6912, 2560), (9, 130, 301)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_tl2_kernel_is_deterministic(cuda, dtype, B, O, K):
+    """Split-K partials are summed in split order, with no atomics: two
+    calls on the same inputs agree bit for bit."""
+    x, w = _case(63, B, O, K, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    words = _served_words(w, cuda)
+    assert torch.equal(_tl2_once(xt, words, K), _tl2_once(xt, words, K))
+
+
+@pytest.mark.parametrize("m,dtype", [(1, "bfloat16"), (2, "bfloat16"),
+                                     (4, "int8")])
+def test_tl2_grid_fills_the_card_at_bitnet_decode(cuda, m, dtype):
+    """At decode every bitnet projection launches at least one block per
+    SM, and two where N >= 2560."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k, n in [(2560, 640), (2560, 2560), (2560, 6912), (6912, 2560)]:
+        x, w = _case(64, m, n, k, int8=dtype == "int8")
+        xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+        _tl2_once(xt, _served_words(w, cuda), k)
+        gx, gy, gz, threads = ttl2.tl2_matmul.last_grid
+        assert gx * gy * gz >= (2 if n >= 2560 else 1) * sms, (k, n, gx, gy)
+        assert threads == 128 and 1 <= gy <= 8 and gz == 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_tl2_wrapper_reads_served_inputs_in_place(cuda, dtype, monkeypatch):
+    """x as it comes and the served words reach the kernel through dispatch
+    with no cast, pad or copy, and a CUDA tensor never takes the plain
+    version."""
+    def boom(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ttl2, "tl2_matmul_torch", boom)
+    rows = ttl2.aligned_rows
+    seen = []
+
+    def recording(t):
+        got, ld = rows(t)
+        seen.append(got.data_ptr() == t.data_ptr() and got.dtype == t.dtype)
+        return got, ld
+
+    monkeypatch.setattr(ttl2, "aligned_rows", recording)
+    x, w = _case(65, 1, 640, 6912, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w).to(cuda))
+    assert not tw.tl2().is_contiguous()
+    n0 = ttl2.tl2_matmul.launches
+    got = tdispatch.ternary_matmul(xt, tw, policy="fixed:tl2")
+    torch.cuda.synchronize()
+    assert ttl2.tl2_matmul.launches == n0 + 1 and seen == [True, True]
+    assert got.shape == (1, 640)
+
+
+def test_tl2_kernel_refuses_x_wider_than_the_words(cuda):
+    words = torch.zeros((4, 5), dtype=torch.int16, device=cuda)
+    n0 = ttl2.tl2_matmul.launches
+    with pytest.raises(ValueError, match="cover"):
+        ttl2.tl2_matmul(torch.zeros((2, 51), device=cuda), words, 50)
+    assert ttl2.tl2_matmul.launches == n0
