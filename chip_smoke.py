@@ -83,9 +83,13 @@ Tolerances:
 
 Timing: each kernel, its plain version and the library yardstick are timed
 call by call from a cold L2 by the timer autotune uses
-(``dispatch.cold_times_ms``, here the mean): a read of 128 MB before every
-call, the calls queued behind a device sleep so each event pair holds
-device time only.
+(``dispatch.cold_times_ms``): a read of 128 MB before every call, the calls
+queued behind a device sleep so each event pair holds device time only.  A
+``kernel`` row keeps each series' mean (``ms``, ``plain_ms``,
+``library_ms``) and beside it the median, minimum and maximum
+(``ms_median``, ``ms_min``, ``ms_max``, and the same for the other two;
+autotune ranks by the median); a ``layer`` row sums the means and the
+medians over one layer.
 """
 
 from __future__ import annotations
@@ -94,6 +98,7 @@ import functools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -178,6 +183,12 @@ LAYER_ROWS = [(name, m, act) for m in (4, PREFILL_CHUNK)
                                 ("w2a8", "int8"), ("tl2", "int8"),
                                 ("signflip", "bfloat16"))] + \
     [("tl2", m, "bfloat16") for m in (1, 2)]
+#: the grouped kernels' per-layer rows (phi3.5-moe's three expert stacks),
+#: at the capacities of a batch-4 decode step and of an admission chunk
+MOE_LAYER_ROWS = [(name, m, act) for name, act in (("grouped_dequant",
+                                                     "bfloat16"),
+                                                    ("grouped_w2a8", "int8"))
+                  for m in (4, PREFILL_CHUNK)]
 
 RECORD: dict = {}
 
@@ -262,8 +273,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
         plain = lambda: plain_fn(x, packed, k)                  # noqa: E731
         wbytes = packed_bytes     # every expert streams; padding never read
         ops = e * m * n * k
-        if name == "grouped_w2a8":
-            rate = INT8_OPS_PER_S
+        # the adds run on the tensor cores: s8 for grouped_w2a8, else bf16
+        rate = INT8_OPS_PER_S if name == "grouped_w2a8" else BF16_OPS_PER_S
     else:
         w = TernaryWeight.from_packed(packed, 1.0, k)
         mu = w.mu
@@ -356,22 +367,27 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
 
-    def mean_ms(fn, reps):
-        times = cold_times_ms(fn, reps, flush)
-        return sum(times) / len(times)
-
     row = {"kernel": name, "E": e, "M": m, "K": k, "N": n, "act": act,
            "max_abs_err": err, "tol": tol,
-           "ms": mean_ms(kernel, 20), "plain_ms": mean_ms(plain, 5),
-           "library_ms": mean_ms(library, 20),
+           **series_ms("ms", cold_times_ms(kernel, 20, flush)),
+           **series_ms("plain_ms", cold_times_ms(plain, 5, flush)),
+           **series_ms("library_ms", cold_times_ms(library, 20, flush)),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops, "ops_per_s": rate}
     if ceiling is not None:
         row["ceiling_by"], row["ceiling_ms"] = ceiling
-    if name in ("lut_gather", "lut_onehot", "tl2", "dequant_packed", "w2a8"):
+    if name != "signflip":
         row["grid"] = fn.last_grid
     return row
+
+
+def series_ms(key: str, times: list[float]) -> dict:
+    """A timed series as ``key`` (its mean) and ``key_median``,
+    ``key_min`` and ``key_max``."""
+    return {key: statistics.fmean(times),
+            f"{key}_median": statistics.median(times),
+            f"{key}_min": min(times), f"{key}_max": max(times)}
 
 
 def capacity(model: str, m: int) -> int:
@@ -462,7 +478,8 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
     sel = {(r["K"], r["N"]): r for r in rows
            if r["kernel"] == name and r["M"] == m and r["act"] == act
            and r["model"] == model}
-    keys = ["ms", "plain_ms", "library_ms"]
+    keys = ["ms", "plain_ms", "library_ms", "ms_median", "plain_ms_median",
+            "library_ms_median"]
     tot = {key: sum(sel[kn][key] * c for kn, c in counts.items())
            for key in keys}
     t_bytes = sum(sel[kn]["bytes"] * c for kn, c in counts.items()) \
@@ -892,8 +909,16 @@ def main() -> int:
     logs = _build.build_all(CUDA_SOURCES)
     usage = {name: re.findall(r"(?:Used \d+ registers|\d+ bytes spill)"
                               r"[^\n]*", log)
-             for name, log in logs.items()}
-    emit("build", seconds=time.perf_counter() - t0, ptxas=usage)
+             for name, log in logs.items() if log}
+    # ptxas reports each kernel instantiation once, with its registers (a
+    # source built before this run has no log and is not counted)
+    emit("build", seconds=time.perf_counter() - t0,
+         instantiations={name: sum(line.startswith("Used") for line in lines)
+                         for name, lines in usage.items()},
+         spilling={name: sum(bool(re.search(r"\b[1-9]\d* bytes spill", line))
+                             for line in lines)
+                   for name, lines in usage.items()},
+         ptxas=usage)
 
     flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     cases = kernel_cases(ARCH)
@@ -955,6 +980,9 @@ def main() -> int:
     cases = kernel_cases(MOE_ARCH)
     rows += check_kernels(torch, cases, flush)
     checked |= set(cases)
+    for name, m, act in MOE_LAYER_ROWS:
+        emit("layer", kernel=name, **layer_summary(
+            rows, name, MOE_ARCH, capacity(MOE_ARCH, m), act))
     cfg, served = build_model(torch, MOE_ARCH)
     cfg8 = cfg.with_(act_dtype="int8")
     run_path("moe_batch4", cfg, MOE_ARCH, batch=4, lengths=lengths,

@@ -15,8 +15,8 @@
 // run the design of ternary_mma.cuh (full-card grid with split-K summed in
 // a thread-block cluster, a 16-byte cp.async ring, trits decoded with no
 // division straight into swap-AB mma.sync fragments), which tl2_matmul.cu
-// shares for TL2 words; this source holds the byte encoding and the
-// entries.
+// shares for TL2 words and grouped_matmul.cu for expert stacks; the header
+// holds the byte encoding (Base3), this source the entries.
 //
 // What bounds them on the H100.  A bitnet layer, (K, N) in {(2560, 2560)
 // x2, (2560, 640) x2, (2560, 6912) x2, (6912, 2560)}, is 69.5 M trits in
@@ -57,22 +57,6 @@
 
 #include "ternary_mma.cuh"
 
-namespace {
-
-// Base-3 bytes: five trits a byte, trit L of a 32-bit word is digit L % 5
-// of byte L / 5.
-struct Base3 {
-  static constexpr int UNIT_BYTES = 1;
-  static __device__ __forceinline__ void planes(uint32_t w, uint32_t (&d)[2][5]) {
-    digits(w & 0x00FF00FFu, d[0]);
-    digits((w >> 8) & 0x00FF00FFu, d[1]);
-  }
-  static __host__ __device__ constexpr int plane(int L) { return (L / 5) & 1; }
-  static __host__ __device__ constexpr int digit(int L) { return L % 5; }
-};
-
-}  // namespace
-
 // Both entries: x: [M, K] with row stride ldx (elements), K the width of x
 // (K <= 5 NB; columns past the weight's logical width are zero); packed:
 // [N, NB] base-3 bytes with row stride ldw (bytes; the served rows are
@@ -87,9 +71,9 @@ extern "C" int dequant_packed_matmul_f32(const void* x, int x_kind,
                                          int N, int K, int NB, long long ldx,
                                          long long ldw, void* stream, int* grid) {
   switch (x_kind) {
-    case X_F32: return call<Base3, X_F32>(x, packed, out, M, N, K, NB, ldx, ldw, stream, grid);
-    case X_BF16: return call<Base3, X_BF16>(x, packed, out, M, N, K, NB, ldx, ldw, stream, grid);
-    case X_I8: return call<Base3, X_I8>(x, packed, out, M, N, K, NB, ldx, ldw, stream, grid);
+    case X_F32: return call<Base3, X_F32>(x, packed, out, 1, M, N, K, NB, ldx, ldw, stream, grid);
+    case X_BF16: return call<Base3, X_BF16>(x, packed, out, 1, M, N, K, NB, ldx, ldw, stream, grid);
+    case X_I8: return call<Base3, X_I8>(x, packed, out, 1, M, N, K, NB, ldx, ldw, stream, grid);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -98,5 +82,5 @@ extern "C" int dequant_packed_matmul_f32(const void* x, int x_kind,
 extern "C" int w2a8_matmul_s32(const void* x, const void* packed, void* out,
                                int M, int N, int K, int NB, long long ldx,
                                long long ldw, void* stream, int* grid) {
-  return call<Base3, W2A8>(x, packed, out, M, N, K, NB, ldx, ldw, stream, grid);
+  return call<Base3, W2A8>(x, packed, out, 1, M, N, K, NB, ldx, ldw, stream, grid);
 }

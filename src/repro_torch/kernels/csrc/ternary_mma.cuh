@@ -1,17 +1,28 @@
 // The packed-ternary tensor-core matmul shared by packed_matmul.cu
-// (dequant_packed, w2a8: base-3 bytes) and tl2_matmul.cu (tl2: TL2 words):
-//   y[b, o] = sum_k x[b, k] * trit(o, k)          (unscaled)
-// over rows of packed trits that hold five trits a byte in both encodings.
-// Each source defines its encoding (how a lane's 32-bit word, 20 trits,
-// becomes base-3 digit planes; see Word) and its C entries; the grid plan,
-// the copy ring, the decode into fragments, the MMAs and the split-K sum
-// are this header's, instantiated per source.
+// (dequant_packed, w2a8: base-3 bytes), grouped_matmul.cu (grouped_dequant,
+// grouped_w2a8: base-3 bytes, one matrix per expert) and tl2_matmul.cu
+// (tl2: TL2 words):
+//   y[e, b, o] = sum_k x[e, b, k] * trit(e, o, k)          (unscaled)
+// over rows of packed trits that hold five trits a byte in both encodings,
+// for E experts (E = 1 for the dense entries).  The base-3 byte encoding
+// (Base3) is this header's; tl2_matmul.cu defines its own (how a lane's
+// 32-bit word, 20 trits, becomes base-3 digit planes; see Word).  Each
+// source holds its C entries; the grid plan, the copy ring, the decode
+// into fragments, the MMAs and the split-K sum are this header's,
+// instantiated per source.
 //
 // 1. Full-card grid, deterministic split-K.  A block of 4 warps owns 64
 //    output columns (2 warps of 32, the other 2 splitting each step along
 //    K; or 4 x 16), or where N is small 32 or 16 columns (2 or 3 more
 //    warps along K); MT = 8, 16 or 32 activation rows (the smallest that
-//    covers M, more as grid.z); and a balanced share of K.  K splits in 1,
+//    covers M, the rows of one expert); and a balanced share of K.  grid.z
+//    is e * (row tiles) + row tile: expert e's x rows start at row e M of
+//    an [E M, K] view, its weight rows at row e N of an [E N, NB] view and
+//    its output at row e M of [E M, N]; the offsets fold into the row
+//    indices and the weight address before the main loop.  An encoding
+//    marks expert stacks (Enc::EXPERTS); one-matrix sources (E = 1) keep
+//    grid.z the row tile and compile with no expert arithmetic at all.
+//    The tiles are E x column tiles x row tiles.  K splits in 1,
 //    2, 4 or 8 until there are two blocks an SM, and the plan takes the
 //    widest layout that gets there within one wave of resident blocks
 //    (asked of the runtime once per kernel), else the one with most blocks
@@ -171,6 +182,19 @@ struct Word {
   }
 };
 
+// Base-3 bytes: five trits a byte, trit L of a 32-bit word is digit L % 5
+// of byte L / 5.
+struct Base3 {
+  static constexpr int UNIT_BYTES = 1;
+  static constexpr bool EXPERTS = false;    // one matrix (see packed_kernel)
+  static __device__ __forceinline__ void planes(uint32_t w, uint32_t (&d)[2][5]) {
+    digits(w & 0x00FF00FFu, d[0]);
+    digits((w >> 8) & 0x00FF00FFu, d[1]);
+  }
+  static __host__ __device__ constexpr int plane(int L) { return (L / 5) & 1; }
+  static __host__ __device__ constexpr int digit(int L) { return L % 5; }
+};
+
 // Trits L and L + 1 of a word as a bf16 pair (L in the low half).  The two
 // digits, gathered into bytes 0 and 1, become prmt selector nibble pairs
 // (d, d + 4) that look up bytes {0x80, 0x00, 0x80} and {0xBF, 0x00, 0x3F}:
@@ -286,7 +310,8 @@ __device__ __forceinline__ Acc from_bits(uint32_t u) {
   else return static_cast<Acc>(static_cast<int32_t>(u));
 }
 
-// One block: columns [o0, o0 + 16 WN RT), rows [m0, m0 + 8 NT), the steps
+// One block: columns [o0, o0 + 16 WN RT), rows [m0, m0 + 8 NT) of expert
+// blockIdx.z / (row tiles) (M rows and N columns an expert), the steps
 // of split blockIdx.y (a balanced share of ceil(JB / SB) steps of SB = 32
 // WK bytes a row; JB = the bytes that cover K).  Warp w owns the 16 RT
 // columns from 16 RT (w % WN) and the (w / WN)-th 32 bytes of each step.
@@ -329,7 +354,19 @@ packed_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   const int g = lane >> 2, t = lane & 3;
   const int o0 = blockIdx.x * BN;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
+  // grid.z = e * row tiles + row tile over expert stacks (Enc::EXPERTS),
+  // else the row tile (E = 1): the tile's rows are rows [m0, m0 + MT) of
+  // expert e, whose x and output rows start at row erow = e M of x [E M, K]
+  // and out [E M, N] and whose weight rows start at row e N; the offsets
+  // are taken here, once (for E = 1 they fold away at compile time)
+  int m0 = blockIdx.z * MT, erow = 0;
+  if constexpr (Enc::EXPERTS) {
+    const int row_tiles = (M + MT - 1) / MT;
+    const int expert = blockIdx.z / row_tiles;
+    m0 = (blockIdx.z - expert * row_tiles) * MT;
+    erow = expert * M;
+    w += static_cast<long long>(expert) * N * ldw;
+  }
   const int ksteps = (JB + SB - 1) / SB;
   const int s0 = static_cast<int>(static_cast<long long>(split) * ksteps / S);
   const int nsteps =
@@ -362,7 +399,7 @@ packed_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
       const int r = c / XCPR, k = k0 + (c % XCPR) * EPC;
       const int valid = max(0, min(EPC, K - k)) * ESZ;
       copy16<true>(dst + STEP + r * XROW + (c % XCPR) * 16,
-                   valid ? x + (m0 + r) * ldx + k : x, valid);
+                   valid ? x + (erow + m0 + r) * ldx + k : x, valid);
     }
   };
 #pragma unroll
@@ -497,7 +534,7 @@ packed_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
           for (int j = 0; j < 4; ++j) {
             const int o = o0 + 16 * (RT * wn + r) + g + (j >> 1) * 8;
             const int b = m0 + n * 8 + 2 * t + (j & 1);
-            if (o < N && b < M) out[static_cast<size_t>(b) * N + o] = static_cast<Out>(acc[r][n][j]);
+            if (o < N && b < M) out[static_cast<size_t>(erow + b) * N + o] = static_cast<Out>(acc[r][n][j]);
           }
     }
     return;
@@ -532,7 +569,7 @@ packed_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
       sum[3] += from_bits<Acc>(v.w);
     }
     if (b < M) {
-      Out* y = out + static_cast<size_t>(b) * N + o;
+      Out* y = out + static_cast<size_t>(erow + b) * N + o;
       for (int c = 0; c < 4 && o + c < N; ++c) y[c] = static_cast<Out>(sum[c]);
     }
   }
@@ -604,14 +641,15 @@ int resident(int layout) {
   }
 }
 
-// Column layout and splits of one call.  Each layout splits K in one,
+// Column layout and splits of one call over E experts of M rows: a layout
+// has E x column tiles x row tiles, and splits K in one,
 // two, four or eight (a cluster) until it has two blocks an SM.  The
 // widest layout that reaches that within one wave of resident blocks
 // wins; where none does, the layout with the most blocks in one wave;
 // where none fits one wave, the fewest waves.
 template <int MODE, int NT, class Enc>
-cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
-                int JB, long long ldx, long long ldw, int sms,
+cudaError_t run(const void* x, const void* w, void* out, int E, int M, int N,
+                int K, int JB, long long ldx, long long ldw, int sms,
                 cudaStream_t stream, int* launched) {
   const long want = 2L * sms;
   int best = -1, best_splits = 1;
@@ -620,7 +658,7 @@ cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
     const int wn = kLayouts[l].wn, bn = 16 * wn * kLayouts[l].rt;
     const int sb = WARP_BYTES * (4 / wn);
     const int ksteps = (JB + sb - 1) / sb;
-    const long tiles = long((N + bn - 1) / bn) * ((M + 8 * NT - 1) / (8 * NT));
+    const long tiles = long(E) * ((N + bn - 1) / bn) * ((M + 8 * NT - 1) / (8 * NT));
     int splits = 1;
     while (splits < MAX_SPLITS && 2 * splits <= ksteps && tiles * splits < want)
       splits *= 2;
@@ -638,7 +676,7 @@ cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
   }
   if (best < 0) return cudaErrorInvalidConfiguration;
   const int bn = 16 * kLayouts[best].wn * kLayouts[best].rt;
-  const dim3 grid((N + bn - 1) / bn, best_splits, (M + 8 * NT - 1) / (8 * NT));
+  const dim3 grid((N + bn - 1) / bn, best_splits, E * ((M + 8 * NT - 1) / (8 * NT)));
   if (launched) {           // the grid, for the caller's record
     launched[0] = grid.x; launched[1] = grid.y; launched[2] = grid.z;
     launched[3] = THREADS;
@@ -651,14 +689,17 @@ cudaError_t run(const void* x, const void* w, void* out, int M, int N, int K,
   }
 }
 
-// One call: x [M, K] at row stride ldx (elements), rows of NB bytes at
-// stride ldw (bytes), both 16-byte aligned.  The copies read the bytes
-// that cover K in whole code units of Enc::UNIT_BYTES (five trits a byte).
+// One call over E experts: x [E M, K] at row stride ldx (elements), rows
+// of NB bytes, [E N] of them, at stride ldw (bytes), both 16-byte aligned;
+// out [E, M, N].  The copies read the bytes that cover K in whole code
+// units of Enc::UNIT_BYTES (five trits a byte).
 template <class Enc, int MODE>
-int call(const void* x, const void* w, void* out, int M, int N, int K, int NB,
-         long long ldx, long long ldw, void* stream, int* launched) {
+int call(const void* x, const void* w, void* out, int E, int M, int N, int K,
+         int NB, long long ldx, long long ldw, void* stream, int* launched) {
   const long long esize = sizeof(typename Traits<MODE>::T);
-  if (M <= 0 || N <= 0 || K <= 0 || NB <= 0 || K > 1LL * TRITS_PER_BYTE * NB ||
+  const long long row_tiles = M <= 16 ? 1 : (M + 31) / 32;   // a row tile of 8, 16 or 32
+  if (E <= 0 || (E > 1 && !Enc::EXPERTS) || M <= 0 || N <= 0 || K <= 0 || NB <= 0 ||
+      E * row_tiles > 65535 || K > 1LL * TRITS_PER_BYTE * NB ||
       ldx < K || ldw < NB || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 || ldx * esize % 16 != 0 ||
       ldw % 16 != 0)
@@ -672,9 +713,9 @@ int call(const void* x, const void* w, void* out, int M, int N, int K, int NB,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 8) e = run<MODE, 1, Enc>(x, w, out, M, N, K, JB, ldx, ldw, sms, s, launched);
-  else if (M <= 16) e = run<MODE, 2, Enc>(x, w, out, M, N, K, JB, ldx, ldw, sms, s, launched);
-  else e = run<MODE, 4, Enc>(x, w, out, M, N, K, JB, ldx, ldw, sms, s, launched);
+  if (M <= 8) e = run<MODE, 1, Enc>(x, w, out, E, M, N, K, JB, ldx, ldw, sms, s, launched);
+  else if (M <= 16) e = run<MODE, 2, Enc>(x, w, out, E, M, N, K, JB, ldx, ldw, sms, s, launched);
+  else e = run<MODE, 4, Enc>(x, w, out, E, M, N, K, JB, ldx, ldw, sms, s, launched);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }

@@ -68,6 +68,7 @@ namespace {
 // digits 5-9 in plane 1, the word's 16-bit lane = byte 2 (L / 10).
 struct TL2 {
   static constexpr int UNIT_BYTES = 2;
+  static constexpr bool EXPERTS = false;
   static __device__ __forceinline__ void planes(uint32_t w, uint32_t (&d)[2][5]) {
     // v / 243 = (v * 69043) >> 24 = umulhi(v, 69043 << 8) for v < 59049
     const uint32_t hi = prmt(__umulhi(w & 0xFFFFu, 69043u << 8),
@@ -98,9 +99,9 @@ extern "C" int tl2_matmul_f32(const void* x, int x_kind, const void* words,
   const int NB = 2 * W;
   const long long ldb = 2 * ldw;
   switch (x_kind) {
-    case X_F32: return call<TL2, X_F32>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
-    case X_BF16: return call<TL2, X_BF16>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
-    case X_I8: return call<TL2, S8_F32>(x, words, out, M, N, K, NB, ldx, ldb, stream, grid);
+    case X_F32: return call<TL2, X_F32>(x, words, out, 1, M, N, K, NB, ldx, ldb, stream, grid);
+    case X_BF16: return call<TL2, X_BF16>(x, words, out, 1, M, N, K, NB, ldx, ldb, stream, grid);
+    case X_I8: return call<TL2, S8_F32>(x, words, out, 1, M, N, K, NB, ldx, ldb, stream, grid);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -501,14 +501,15 @@ register_kernel(KernelSpec(
     kernel=grouped_packed_matmul, grouped=True,
     prior_per_mac=_per_mac_dequant, weight_bytes=_bytes_packed,
     describe="grouped base-3 packed dequant CUDA kernel: expert grid "
-             "dimension, bytes decoded in the tile (1.6 b/w MoE path)"))
+             "dimension, bytes decoded straight into bf16 tensor-core "
+             "fragments (1.6 b/w MoE path)"))
 
 register_kernel(KernelSpec(
     name="grouped_w2a8", run=_run_grouped_w2a8,
     act_dtypes=frozenset({"int8"}), kernel=grouped_w2a8_matmul, grouped=True,
     prior_per_mac=_per_mac_dequant, weight_bytes=_bytes_packed,
-    describe="grouped W1.58A8 exact int8 x trit -> int32 CUDA kernel (dp4a) "
-             "with an expert grid dimension"))
+    describe="grouped W1.58A8 exact int8 x trit -> int32 CUDA kernel (s8 "
+             "tensor cores) with an expert grid dimension"))
 
 register_kernel(KernelSpec(
     name="grouped_tl2", run=_run_grouped_tl2, act_dtypes=_ALL_DTYPES,

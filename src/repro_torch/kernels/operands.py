@@ -6,8 +6,8 @@ from __future__ import annotations
 import torch
 
 #: activation dtypes the kernels built per dtype (signflip, lut_gather,
-#: lut_onehot, dequant_packed, tl2) read as they are, by the code their C
-#: entries take; the wrappers cast any other dtype to f32
+#: lut_onehot, dequant_packed, tl2, grouped_dequant) read as they are, by
+#: the code their C entries take; the wrappers cast any other dtype to f32
 X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 

@@ -11,10 +11,12 @@ histogram.  Used for the decode cost of the kernels on
 instantiations are matched by the mangled ``ILi<MODE>ELi<NT>ELi<WN>ELi<RT>E``.
 By default the 4 x 16-column layout at one 8-row tile: ``packed_matmul``'s
 bf16 (mode 1) and s8 (mode 3, ``w2a8``) loops, ``tl2_matmul``'s bf16 (mode
-1) and s8 (mode 4) loops.
+1) and s8 (mode 4) loops; ``grouped_matmul``'s bf16 and s8 loops in that
+layout and in the 2 x 32-column one that phi3.5-moe's expert stacks run.
 
 Usage (on a machine with the CUDA toolkit):
-  python -m repro_torch.launch.sass_count [--source packed_matmul|tl2_matmul] \\
+  python -m repro_torch.launch.sass_count \\
+      [--source packed_matmul|tl2_matmul|grouped_matmul] \\
       [--match ILi1ELi1ELi4ELi1E ILi3ELi1ELi4ELi1E]
 """
 
@@ -31,7 +33,9 @@ INTEGER = {"IMAD", "IADD3", "LOP3", "SHF", "PRMT", "IMUL", "LEA", "ISETP",
            "SEL", "IMNMX", "VIADD", "VIMNMX", "BFE", "SGXT"}
 #: per source, the instantiations counted by default (see above)
 DEFAULT_MATCH = {"packed_matmul": ["ILi1ELi1ELi4ELi1E", "ILi3ELi1ELi4ELi1E"],
-                 "tl2_matmul": ["ILi1ELi1ELi4ELi1E", "ILi4ELi1ELi4ELi1E"]}
+                 "tl2_matmul": ["ILi1ELi1ELi4ELi1E", "ILi4ELi1ELi4ELi1E"],
+                 "grouped_matmul": ["ILi1ELi1ELi4ELi1E", "ILi3ELi1ELi4ELi1E",
+                                    "ILi1ELi1ELi2ELi2E", "ILi3ELi1ELi2ELi2E"]}
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 

@@ -417,6 +417,132 @@ def test_grouped_dispatch_on_the_card_launches_grouped_dequant(cuda):
         2 ** -7 * float(want.float().abs().max())
 
 
+GROUPED_FN = {"dequant": (tgm.grouped_packed_matmul,
+                          tgm.grouped_packed_matmul_torch),
+              "w2a8": (tgm.grouped_w2a8_matmul, tgm.grouped_w2a8_matmul_torch)}
+
+
+def _grouped_once(kernel, x, packed, k):
+    """One grouped kernel call; it must launch (and count) exactly once,
+    and the other grouped kernel's count must not move."""
+    fn, _ = GROUPED_FN[kernel]
+    other = GROUPED_FN["w2a8" if kernel == "dequant" else "dequant"][0]
+    n0, o0 = fn.launches, other.launches
+    got = fn(x, packed, k)
+    assert fn.launches == n0 + 1 and other.launches == o0
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], x.shape[1], packed.shape[1])
+    assert got.dtype == (torch.float32 if kernel == "dequant" else torch.int32)
+    return got
+
+
+def _grouped_x(seed, E, C, K, dtype, device):
+    """x [E, C, K] of ``dtype``; f32 values need all 24 bits (three bf16
+    terms in the kernel)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype == "int8":
+        return torch.randint(-127, 128, (E, C, K), generator=g, device=device,
+                             dtype=torch.int8)
+    return torch.randn((E, C, K), generator=g, device=device).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("E,C,K,N", GROUPED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_grouped_dequant_kernel_on_every_x_dtype(cuda, dtype, E, C, K, N):
+    """f32, bf16 and int8 x as they come: within the f32 tolerance of the
+    plain version, and int8 (integer sums below 2^24) equal to it."""
+    _, _, packed = _grouped_case(18, E, C, K, N, False, cuda)
+    x = _grouped_x(19, E, C, K, dtype, cuda)
+    got = _grouped_once("dequant", x, packed, K)
+    want = tgm.grouped_packed_matmul_torch(x, packed, K)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    assert float((got - want).abs().max()) <= _atol(x.reshape(-1, K))
+
+
+@pytest.mark.parametrize("E,C,K,N", [(3, 2, 50, 37), (4, 5, 133, 260),
+                                     (2, 9, 301, 130)])
+@pytest.mark.parametrize("kernel,dtype", [("dequant", "float32"),
+                                          ("dequant", "bfloat16"),
+                                          ("dequant", "int8"),
+                                          ("w2a8", "int8")])
+def test_grouped_kernel_takes_x_at_any_layout(cuda, kernel, dtype, E, C, K, N):
+    """x as the columns of a wider buffer (rows at a padded stride, read in
+    place), with its experts out of order in memory (copied to one stride)
+    and starting off 16 bytes (copied to aligned rows): the same sums, bit
+    for bit, as contiguous x."""
+    _, _, packed = _grouped_case(20, E, C, K, N, False, cuda)
+    x = _grouped_x(21, E, C, K, dtype, cuda)
+    got = _grouped_once(kernel, x, packed, K)
+    wide = torch.zeros((E, C, -(-K // 16) * 16 + 16), dtype=x.dtype,
+                       device=cuda)
+    wide[:, :, :K] = x
+    by_row = x.transpose(0, 1).contiguous().transpose(0, 1)
+    flat = torch.zeros(E * C * K + 1, dtype=x.dtype, device=cuda)
+    flat[1:] = x.reshape(-1)
+    off = flat[1:].view(E, C, K)
+    assert off.data_ptr() % 16 and not by_row.is_contiguous()
+    for view in (wide[:, :, :K], by_row, off):
+        assert torch.equal(got, _grouped_once(kernel, view, packed, K))
+    want = GROUPED_FN[kernel][1](x, packed, K)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= _atol(x.reshape(-1, K))
+
+
+@pytest.mark.parametrize("E,C,K,N", [(4, 5, 133, 260), (16, 1, 4096, 6400),
+                                     (16, 5, 6400, 4096)])
+@pytest.mark.parametrize("kernel,dtype", [("dequant", "float32"),
+                                          ("dequant", "bfloat16"),
+                                          ("w2a8", "int8")])
+def test_grouped_kernel_is_deterministic(cuda, kernel, dtype, E, C, K, N):
+    """Two calls on the same inputs agree bit for bit (split-K, where the
+    plan splits, sums in split order with no atomics)."""
+    _, _, packed = _grouped_case(22, E, C, K, N, False, cuda)
+    x = _grouped_x(23, E, C, K, dtype, cuda)
+    assert torch.equal(_grouped_once(kernel, x, packed, K),
+                       _grouped_once(kernel, x, packed, K))
+
+
+@pytest.mark.parametrize("E,C,K,N", [(16, 1, 4096, 6400), (16, 5, 4096, 6400),
+                                     (16, 1, 6400, 4096), (16, 5, 6400, 4096)])
+@pytest.mark.parametrize("kernel", ["dequant", "w2a8"])
+def test_grouped_grid_at_phi35_expert_stacks(cuda, kernel, E, C, K, N):
+    """At phi3.5-moe's expert stacks the plan has E x N / 64 tiles of 64
+    columns, one 8-row tile an expert (C <= 8), so at least 1,024 blocks:
+    K is not split, and grid.z is the expert."""
+    _, _, packed = _grouped_case(24, E, C, K, N, False, cuda)
+    x = _grouped_x(25, E, C, K, "int8" if kernel == "w2a8" else "bfloat16",
+                   cuda)
+    _grouped_once(kernel, x, packed, K)
+    assert GROUPED_FN[kernel][0].last_grid == (N // 64, 1, E, 128)
+
+
+def test_grouped_wrapper_reads_served_inputs_in_place(cuda, monkeypatch):
+    """bf16 x and the served 128-byte padded rows reach grouped_dequant
+    through dispatch with no cast or copy."""
+    rows = tgm.aligned_rows
+    seen = []
+
+    def recording(t):
+        got, ld = rows(t)
+        seen.append(got.data_ptr() == t.data_ptr() and got.dtype == t.dtype)
+        return got, ld
+
+    monkeypatch.setattr(tgm, "aligned_rows", recording)
+    x, _, packed = _grouped_case(26, 4, 5, 640, 256, False, cuda)
+    gw = tdispatch.GroupedTernaryWeight.from_packed(
+        packed, torch.ones(4, device=cuda), 640)
+    n0 = tgm.grouped_packed_matmul.launches
+    got = tdispatch.grouped_ternary_matmul(x, gw,
+                                           policy="fixed:grouped_dequant")
+    torch.cuda.synchronize()
+    assert tgm.grouped_packed_matmul.launches == n0 + 1
+    assert seen == [True, True] and got.shape == (4, 5, 256)
+
+
 # ---------------------------------------------------------------------------
 # lut_gather and lut_onehot: x and keys as served
 # ---------------------------------------------------------------------------

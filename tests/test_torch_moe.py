@@ -109,8 +109,10 @@ def _grouped_case(seed, E, C, K, N, int8=False):
 
 
 # (E, C, K, N): decode capacity 1, ragged K (not a multiple of 5 or 10),
-# every row tile the kernels are built for (C = 1, 2, 5, 9), N past 128
-GROUPED = [(3, 1, 50, 37), (2, 5, 301, 130), (4, 2, 64, 20), (2, 9, 133, 7)]
+# every row tile the kernels are built for (C = 1, 2, 5, 9), N past 128;
+# more of the admission chunk's C = 5 and past one 8-row tile (C = 9)
+GROUPED = [(3, 1, 50, 37), (2, 5, 301, 130), (4, 2, 64, 20), (2, 9, 133, 7),
+           (4, 5, 97, 70), (3, 9, 286, 40)]
 
 
 @pytest.mark.parametrize("E,C,K,N", GROUPED)
