@@ -21,6 +21,17 @@ bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
     measurements, once with bf16 and once with int8 activations;
   * pinned: ``fixed:lut_onehot``, ``fixed:dequant_packed``,
     ``fixed:signflip`` (bf16) and ``fixed:w2a8`` (int8), batch 4;
+  * traffic (after the prior paths, before autotune): the first 12
+    arrivals of the ``agentic`` scenario (its lengths kept, arrivals cut),
+    replayed open-loop on the wall clock by ``LoadGenerator`` at batch 4,
+    ``max_len`` from the scenario's geometry, twice on fresh engines over
+    the same weights: without a prefix store and with one that starts
+    empty (512 MiB, so nothing is evicted).  Every request's token stream
+    must be the same in both replays (a dense step computes each row on its
+    own, and admission prefills on a private single-row cache, so which
+    rows share a batch changes no stream), the store replay must prefill
+    fewer chunks and hit at least once, and ``lut_gather`` must launch in
+    both;
 
 then, with bitnet's tree freed, phi3.5-moe-42b-a6.6b (32 layers, d_model
 4096, 16 experts top-2, d_ff 6400, an MoE FFN on every layer) on these:
@@ -139,6 +150,12 @@ PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
          "int8": (ARCH, 4, "int8", None),
          "moe_batch4": (MOE_ARCH, 4, "bfloat16", None),
          "moe_int8_w2a8": (MOE_ARCH, 4, "int8", "fixed:w2a8")}
+#: the traffic phase: scenario, arrivals kept (the scenario's lengths are
+#: kept whole), and the store's budget (large enough that nothing is
+#: evicted)
+TRAFFIC_SCENARIO = "agentic"
+TRAFFIC_REQUESTS = 12
+TRAFFIC_STORE_MB = 512.0
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -574,11 +591,12 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
                 not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid} ended with {r.out} "
                                  f"(done={r.done})")
-    wrong = {name: c for name, c in counts.items()
-             if (c > 0) != (name in expect)}
-    if wrong:
-        raise AssertionError(f"launches {counts} disagree with the path's "
-                             f"selected hand kernels {sorted(expect)}")
+    # no prefix store, so cache affinity leaves admission FIFO
+    if [r.rid for r in sched.admission_order] != [r.rid for r in reqs] or \
+            sched.stats.affinity_reorders:
+        raise AssertionError("a path without a prefix store admitted out of "
+                             "submission order")
+    check_launches(counts, expect)
     selected = {":".join(f"{d}{v}" for d, v in zip(
         "EMKN" if len(shape) == 4 else "MKN", shape)): name
         for shape, name in selection.items()}
@@ -594,6 +612,113 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
             "decode_step_ms": step_ms,
             "launches_per_decode_step": step_launches, "launches": counts,
             "selected": selected}
+
+
+def check_launches(counts: dict, expect: set) -> None:
+    """Each hand kernel in ``expect`` launched, and no other."""
+    wrong = {name: c for name, c in counts.items()
+             if (c > 0) != (name in expect)}
+    if wrong:
+        raise AssertionError(f"launches {counts} disagree with the path's "
+                             f"selected hand kernels {sorted(expect)}")
+
+
+def traffic_phase(torch, served, cfg, checked: set) -> dict:
+    """Replay the first ``TRAFFIC_REQUESTS`` arrivals of
+    ``TRAFFIC_SCENARIO`` open-loop on the wall clock at batch 4, on a fresh
+    engine without a prefix store and then on one whose store starts
+    empty; each replay is driven with the launch counters set to 0 just
+    before it and read just after.  Fails unless every request's stream is
+    the same in both, the store replay prefilled fewer chunks and hit at
+    least once, and each replay launched exactly the path's selected hand
+    kernels (``lut_gather`` on the prior).  Returns ``{replay: record}``."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.launch.serve import tenant_lines
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.loadgen import LoadGenerator, generate_trace
+    from repro_torch.serving.workload import get_scenario
+
+    batch = 4
+    selection = path_selection(ARCH, batch, cfg.dtype, cfg.matmul_policy)
+    cases = selected_cases(ARCH, selection, cfg.dtype)
+    expect = {name for _, name, _, _ in cases}
+    if "lut_gather" not in expect or cases - checked:
+        raise AssertionError(f"traffic path selects {sorted(cases)}; "
+                             f"unchecked {sorted(cases - checked)}")
+    scenario = replace(get_scenario(TRAFFIC_SCENARIO),
+                       max_requests=TRAFFIC_REQUESTS)
+    trace = generate_trace(scenario, cfg.vocab_size, seed=SEED)
+    need = scenario.max_prompt_len() + scenario.max_new_tokens() + 1
+    max_len = -(-need // 16) * 16
+    out, streams = {}, {}
+    for name, store in (("no_store", False), ("store", True)):
+        engine = DecodeEngine(served, cfg, batch_size=batch, max_len=max_len,
+                              prefill_chunk=PREFILL_CHUNK, device=DEVICE,
+                              prefix_cache=store,
+                              prefix_cache_mb=TRAFFIC_STORE_MB)
+        # set-up, untimed: derive the kernels' weight encodings with a
+        # prompt shorter than a block, which leaves the store empty
+        engine.serve(make_requests([8], 2, cfg.vocab_size, SEED + 99))
+        torch.cuda.synchronize()
+        if engine.prefix_store is not None and (
+                len(engine.prefix_store) or engine.prefix_store.stats.lookups):
+            raise AssertionError("the warm-up touched the prefix store")
+        gen = LoadGenerator(engine, trace, clock="wall")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = gen.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        check_launches(counts, expect)
+        reqs = sorted(gen.sched.completed, key=lambda r: r.rid)
+        if len(reqs) != len(trace) or any(
+                not r.done or len(r.out) != ev.new_tokens
+                or not all(0 <= t < cfg.vocab_size for t in r.out)
+                for r, ev in zip(reqs, trace)):
+            raise AssertionError(f"traffic {name}: a request did not finish "
+                                 f"with its budget of valid tokens")
+        streams[name] = [r.out for r in reqs]
+        st = res.stats
+        rec = {"scenario": scenario.name, "arrivals": len(trace),
+               "batch": batch, "max_len": max_len,
+               "prefill_chunk": PREFILL_CHUNK, "seconds": dt,
+               "makespan_s": res.makespan_s, "offered_qps": res.offered_qps,
+               "achieved_qps": res.achieved_qps,
+               "new_tokens": res.emitted_tokens,
+               "tokens_per_s": res.emitted_tokens / dt,
+               "decode_steps": st.decode_steps,
+               "prefill_chunks": st.prefill_chunks,
+               "affinity_reorders": st.affinity_reorders,
+               "queue_wait_s": st.queue_wait_summary(),
+               "tenants": tenant_lines(scenario, res), "launches": counts}
+        if engine.prefix_store is not None:
+            ps = engine.prefix_store
+            rec["prefix_store"] = {
+                "lookups": ps.stats.lookups,
+                "hit_blocks": ps.stats.hit_blocks,
+                "reused_tokens": ps.stats.reused_tokens,
+                "published_blocks": ps.stats.published_blocks,
+                "evicted_blocks": ps.stats.evicted_blocks,
+                "resident_blocks": len(ps),
+                "resident_mib": ps.nbytes / (1 << 20)}
+        out[name] = rec
+        del engine, gen
+        torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(streams["no_store"], streams["store"])]
+    if not all(same):
+        raise AssertionError(f"traffic: streams of requests "
+                             f"{[i for i, ok in enumerate(same) if not ok]} "
+                             f"differ with the prefix store")
+    if not out["store"]["prefill_chunks"] < out["no_store"]["prefill_chunks"]:
+        raise AssertionError("traffic: the store replay prefilled no fewer "
+                             "chunks")
+    if out["store"]["prefix_store"]["hit_blocks"] < 1:
+        raise AssertionError("traffic: the store replay had no hit")
+    return out
 
 
 def decode_step_ms(torch, engine, cfg, steps: int = 10):
@@ -949,6 +1074,12 @@ def main() -> int:
     run_path("int8", cfg8, batch=4, lengths=short, new_tokens=4)
     for c in (cfg, cfg8):
         emit("cross_check", **cross_check(torch, served, c))
+
+    # 1b. bitnet under arriving traffic, on the prior (before autotune)
+    for name, rec in traffic_phase(torch, served, cfg, checked).items():
+        paths[f"traffic_{name}"] = rec
+        emit(f"traffic_{name}", gpu=card, **rec)
+        torch.cuda.empty_cache()
 
     # 2. bitnet autotuned: measure, check whatever the measurements now
     # select, serve under auto

@@ -11,7 +11,8 @@ take the most device time.
 
 Usage (on the card):
   python -m repro_torch.launch.profile --arch bitnet-b1.58-2b --batch 4 \
-      [--steps 8] [--act-dtype none|int8] [--policy auto] [--smoke]
+      [--steps 8] [--act-dtype none|int8] [--policy auto] [--smoke] \
+      [--max-len 256]
   python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
 """
 
@@ -90,6 +91,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--act-dtype", choices=["none", "int8"], default="none")
     ap.add_argument("--policy", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-len", type=int, default=256,
+                    help="the engine's max_len: every step attends its "
+                    "whole KV ring of this length")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -98,9 +102,11 @@ def main(argv: list[str] | None = None) -> dict:
         cfg = cfg.with_(act_dtype=args.act_dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     served = init_serving_params(cfg, gen, device)
-    engine = DecodeEngine(served, cfg, batch_size=args.batch, max_len=256,
-                          matmul_policy=args.policy, device=device)
-    out = {"arch": cfg.name, "batch": args.batch, "act_dtype": cfg.act_dtype,
+    engine = DecodeEngine(served, cfg, batch_size=args.batch,
+                          max_len=args.max_len, matmul_policy=args.policy,
+                          device=device)
+    out = {"arch": cfg.name, "batch": args.batch, "max_len": args.max_len,
+           "act_dtype": cfg.act_dtype,
            "policy": args.policy or "auto",
            "gpu": torch.cuda.get_device_name(device),
            **profile_steps(engine, args.steps)}

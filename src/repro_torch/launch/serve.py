@@ -5,8 +5,10 @@ scheduler on the card.
 Usage:
   python -m repro_torch.launch.serve --arch bitnet-b1.58-2b [--smoke] \
       [--batch 4] [--max-len 256] [--requests N] [--new-tokens 32] \
-      [--prefill-chunk 32] [--act-dtype none|int8] [--policy auto] \
-      [--autotune] [--device cuda|cpu] [--seed 0]
+      [--prefill-chunk 32] [--admission-budget 0] [--act-dtype none|int8] \
+      [--policy auto] [--autotune] [--prefix-cache] [--prefix-cache-mb 64] \
+      [--scenario chat|rag|agentic|code] [--scenario-seed 0] \
+      [--device cuda|cpu] [--seed 0]
 
 ``--arch`` takes bitnet-b1.58-2b or phi3.5-moe-42b-a6.6b (16 experts,
 top-2, an MoE FFN on every layer).  Weights are random (there is no
@@ -23,6 +25,19 @@ for int8 activations, ``grouped_dequant`` for the experts).
 measurements; ``--policy fixed:<kernel>`` pins one kernel (a dense pin maps
 to its grouped counterpart on the experts).  The launcher prints how many
 times each hand kernel launched.
+
+``--scenario NAME`` replaces the fixed request list with a named
+multi-tenant workload (``repro_torch.serving.workload``) replayed open-loop
+under the wall clock: requests arrive on each tenant's seeded arrival
+process, queue for real, and the launcher prints per-tenant p50/p95/p99
+TTFT, TPOT p50 and SLO attainment.  The scenario sets the geometry
+(``--max-len`` is raised to fit its longest prompt and generation);
+``--smoke`` shrinks the scenario too.  ``--prefix-cache`` turns on hashed
+shared-prefix KV reuse (block = one ``--prefill-chunk``, LRU under
+``--prefix-cache-mb``), and the scheduler then admits cache-hot requests
+first; the launcher prints the store's hit and residency line.
+``--admission-budget`` caps prefill chunks per scheduler step (0 =
+unbounded).
 """
 
 from __future__ import annotations
@@ -38,10 +53,15 @@ from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
 from repro_torch.models.decode import (init_serving_params,
                                        packed_bits_per_weight)
 from repro_torch.serving.engine import DecodeEngine, Request
+from repro_torch.serving.loadgen import (LoadGenerator, LoadResult,
+                                         generate_trace, latency_summary)
 from repro_torch.serving.scheduler import ContinuousScheduler
+from repro_torch.serving.workload import get_scenario
 
 
-def main(argv: list[str] | None = None) -> list[Request]:
+def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
+    """Serve the fixed request list (returns the requests) or, with
+    ``--scenario``, replay the scenario (returns the :class:`LoadResult`)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -54,6 +74,9 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="admission prefill chunk size")
+    ap.add_argument("--admission-budget", type=int, default=0,
+                    help="max prefill chunks per scheduler step (0 = "
+                    "unbounded)")
     ap.add_argument("--act-dtype", choices=["none", "int8"], default="none",
                     help="int8 quantizes activations per token in front of "
                     "every packed matmul (the W1.58A8 path)")
@@ -63,6 +86,19 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap.add_argument("--autotune", action="store_true",
                     help="time every eligible kernel at the engine's shapes "
                     "before serving, so 'auto' dispatches on measurements")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="hashed shared-prefix KV reuse: admission splices "
+                    "cached KV blocks (block = one --prefill-chunk) instead "
+                    "of recomputing them, and the scheduler admits "
+                    "cache-hot requests first")
+    ap.add_argument("--prefix-cache-mb", type=float, default=64.0,
+                    help="prefix-cache byte budget in MiB (LRU eviction)")
+    ap.add_argument("--scenario", default=None,
+                    help="replay a named multi-tenant workload (chat | rag "
+                    "| agentic | code) open-loop under the wall clock "
+                    "instead of the fixed request list (--smoke shrinks it)")
+    ap.add_argument("--scenario-seed", type=int, default=0,
+                    help="arrival-trace seed for --scenario")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     ap.add_argument("--seed", type=int, default=0,
@@ -77,21 +113,49 @@ def main(argv: list[str] | None = None) -> list[Request]:
     served = init_serving_params(cfg, gen, device)
     print(f"[serve] {cfg.name} on {device}: packed "
           f"{packed_bits_per_weight(served):.3f} b/w")
+    scenario = None
+    if args.scenario:
+        scenario = get_scenario(args.scenario)
+        if args.smoke:
+            scenario = scenario.smoke()
+        need = scenario.max_prompt_len() + scenario.max_new_tokens() + 1
+        if args.max_len < need:  # the scenario dictates the geometry
+            args.max_len = -(-need // 16) * 16
+            print(f"[serve] scenario {scenario.name}: max_len raised to "
+                  f"{args.max_len}")
     engine = DecodeEngine(served, cfg, batch_size=args.batch,
                           max_len=args.max_len, matmul_policy=args.policy,
-                          prefill_chunk=args.prefill_chunk, device=device)
+                          prefill_chunk=args.prefill_chunk, device=device,
+                          prefix_cache=args.prefix_cache,
+                          prefix_cache_mb=args.prefix_cache_mb)
+    budget = args.admission_budget if args.admission_budget > 0 else None
     if args.autotune:
         for shape, us in engine.autotune_shapes().items():
             print(f"[autotune] M{shape[0]} K{shape[1]} N{shape[2]}: "
                   + ", ".join(f"{k} {t:.1f}us" for k, t in sorted(
                       us.items(), key=lambda kv: kv[1])))
+    if scenario is not None:
+        trace = generate_trace(scenario, cfg.vocab_size, args.scenario_seed)
+        reset_launch_counts()
+        res = LoadGenerator(engine, trace, clock="wall",
+                            admission_budget=budget).run()
+        print(f"[serve] scenario {scenario.name} (seed "
+              f"{args.scenario_seed}): {len(res.records)} requests, "
+              f"offered {res.offered_qps:.2f} qps, achieved "
+              f"{res.achieved_qps:.2f} qps, makespan {res.makespan_s:.2f}s, "
+              f"{res.emitted_tokens} tokens / {res.stats.decode_steps} "
+              f"decode steps; kernel launches: {_launch_report()}")
+        _print_tenant_lines(scenario, res)
+        _print_prefix_line(engine)
+        return res
+
     n_req = args.requests if args.requests is not None else args.batch
     reqs = [Request(prompt=[7 + i, 13 + i], max_new_tokens=args.new_tokens)
             for i in range(n_req)]
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    sched = ContinuousScheduler(engine)
+    sched = ContinuousScheduler(engine, admission_budget=budget)
     for r in reqs:
         sched.submit(r)
     sched.run()
@@ -99,12 +163,59 @@ def main(argv: list[str] | None = None) -> list[Request]:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n = sum(len(r.out) for r in reqs)
-    launches = ", ".join(f"{k} {v}" for k, v in launch_counts().items())
     print(f"[serve] {n} tokens / {sched.stats.decode_steps} decode steps in "
-          f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: {launches}")
+          f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: "
+          f"{_launch_report()}")
+    _print_prefix_line(engine)
     for i, r in enumerate(reqs):
         print(f"  [{i}] {r.out}")
     return reqs
+
+
+def _launch_report() -> str:
+    return ", ".join(f"{k} {v}" for k, v in launch_counts().items())
+
+
+def tenant_lines(scenario, res: LoadResult) -> dict:
+    """Per tenant: request count, TTFT and TPOT summaries (seconds), and the
+    share of requests within both of the tenant's SLOs."""
+    tenants = {t.name: t for t in scenario.tenants}
+    out = {}
+    for name, recs in sorted(res.by_tenant().items()):
+        ten = tenants[name]
+        ok = sum(1 for r in recs
+                 if r.ttft_s is not None and r.ttft_s <= ten.slo_ttft_s
+                 and (r.tpot_s is None or r.tpot_s <= ten.slo_tpot_s))
+        out[name] = {
+            "requests": len(recs),
+            "ttft_s": latency_summary(
+                [r.ttft_s for r in recs if r.ttft_s is not None]),
+            "tpot_s": latency_summary(
+                [r.tpot_s for r in recs if r.tpot_s is not None]),
+            "queue_wait_s": latency_summary(
+                [r.queue_wait_s for r in recs if r.queue_wait_s is not None]),
+            "slo_attainment": ok / len(recs)}
+    return out
+
+
+def _print_tenant_lines(scenario, res: LoadResult) -> None:
+    for name, t in tenant_lines(scenario, res).items():
+        ttft, tpot = t["ttft_s"], t["tpot_s"]
+        print(f"[serve]   {name}: {t['requests']} reqs | ttft p50/p95/p99 "
+              f"{ttft['p50']:.4f}/{ttft['p95']:.4f}/{ttft['p99']:.4f}s | "
+              f"tpot p50 {tpot['p50']:.4f}s | slo attainment "
+              f"{t['slo_attainment']:.0%}")
+
+
+def _print_prefix_line(engine: DecodeEngine) -> None:
+    store = engine.prefix_store
+    if store is None:
+        return
+    st = store.stats
+    print(f"[serve] prefix cache: {st.hit_blocks}/{st.lookups} block hits "
+          f"({st.hit_rate:.0%}), {st.reused_tokens} prompt tokens spliced, "
+          f"{st.published_blocks} published, {st.evicted_blocks} evicted, "
+          f"{len(store)} blocks resident ({store.nbytes >> 10} KiB)")
 
 
 if __name__ == "__main__":

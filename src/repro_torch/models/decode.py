@@ -1,6 +1,7 @@
 """Serving-side paths of the attention family (dense, and MoE with an
 expert FFN on every layer): ternary weight packing, the KV ring cache,
-prefill (whole and chunked) and single-token decode.
+prefill (whole and chunked), single-token decode, and the prefix-cache
+block extract and splice.
 
 ``quantize_for_serving`` turns trained parameters into the deployment
 artifact: every ternary projection becomes ``{"packed": uint8 base-3 (1.6
@@ -12,9 +13,10 @@ cache writer keeps one ring invariant: position ``p`` lives at slot ``p %
 CL`` (:func:`_ring_slot`); a negative position (a dead scheduler row, a
 padded chunk tail) writes nothing.
 
-Unlike the reference's functional updates, the chunk and decode steps write
-their KV and positions into the cache tensors in place (the cache dict they
-return holds the same tensors): a serving step then never copies the cache.
+Unlike the reference's functional updates, the chunk and decode steps (and
+the block splice) write their KV and positions into the cache tensors in
+place (the cache dict they return holds the same tensors): a serving step
+then never copies the cache.
 """
 
 from __future__ import annotations
@@ -408,6 +410,54 @@ def prefill_chunk(p: Params, cfg: ModelConfig, cache: dict,
     take = C - 1 if take is None else take
     cache, h = _chunk_forward(p, cfg, cache, tokens, positions)
     return cache, _final_logits(p, cfg, h[:, take])
+
+
+def _block_slots(cfg: ModelConfig, cache: dict, start: int, length: int):
+    """Positions ``[start, start + length)`` and their canonical ring slots
+    in ``cache`` (``start`` is a host int: no device read)."""
+    pos = start + torch.arange(length, dtype=torch.int32,
+                               device=cache["pos"].device)
+    return pos, _ring_slot(cfg, cache["pos"].shape[-1], pos).long()
+
+
+def extract_kv_blocks(cfg: ModelConfig, cache: dict, start: int,
+                      length: int) -> dict:
+    """Pull one prefix block's KV out of a single-row cache: the slab
+    ``{"k": [L, length, Hkv, hd], "v": [L, length, Hkv, hd]}`` holding
+    positions ``[start, start + length)``, read from their canonical ring
+    slots (``p % CL``), so the extraction is valid whenever those positions
+    are still live in the ring (the engine extracts each chunk right after
+    prefilling it, before any wraparound can overwrite it).
+
+    The slab owns its storage (``index_select``, not a view): a view would
+    keep the whole admission cache alive for as long as the block stays in
+    a prefix store.  Inverse of :func:`splice_kv_blocks`."""
+    _, slots = _block_slots(cfg, cache, start, length)
+    return {name: cache[name][:, 0].index_select(1, slots)
+            for name in ("k", "v")}
+
+
+def splice_kv_blocks(cfg: ModelConfig, cache: dict, block: dict,
+                     start: int) -> dict:
+    """Write a cached prefix block back into a single-row cache, in place,
+    at the canonical ring slots for positions ``[start, start + length)``:
+    KV *and* the per-slot positions, so a later chunked prefill or decode
+    step sees exactly the state the original compute left behind (the slab
+    is spliced in its stored dtype, untouched).  Fixed shapes, no host
+    sync.
+
+    Blocks must be spliced in prefix order: with a sliding window a later
+    block's slots may wrap onto an earlier block's (the engine caps reuse
+    depth at ``CL`` so this never happens, but later writes win, matching
+    recompute).  Inverse of :func:`extract_kv_blocks`.  Returns
+    ``cache``."""
+    L, length = block["k"].shape[:2]
+    pos, slots = _block_slots(cfg, cache, start, length)
+    for name in ("k", "v"):
+        cache[name][:, 0].index_copy_(1, slots,
+                                      block[name].to(cache[name].dtype))
+    cache["pos"][:, 0].index_copy_(1, slots, pos.expand(L, length))
+    return cache
 
 
 def prefill_chunks_of(plen: int, chunk: int) -> list[tuple[int, int]]:

@@ -14,8 +14,15 @@ engine's decode and admission-chunk shapes, dense and grouped (MoE expert
 stacks at their per-expert capacities), so ``policy="auto"`` serving
 dispatches on the card's own times.
 
-Prefix caching, speculative decoding, mesh sharding and the generational
-``run()`` path are not ported yet; the constructor rejects their arguments.
+With ``prefix_cache`` set, admission consults a hashed shared-prefix KV
+block store (:class:`repro_torch.serving.prefix_cache.PrefixBlockStore`):
+the longest run of cached blocks is spliced into the private cache instead
+of recomputed, each freshly computed full block is published, and
+:meth:`DecodeEngine.prefix_match_len` lets the scheduler admit cache-hot
+requests first.
+
+Speculative decoding, mesh sharding and the generational ``run()`` path are
+not ported yet; the constructor rejects their arguments.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import autotune, get_autotune_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (bind_serving_weights, cache_len,
-                                       decode_step, init_cache,
+                                       decode_step, extract_kv_blocks,
+                                       init_cache,
                                        layer_grouped_matmul_problems,
                                        layer_matmul_problems,
-                                       prefill_chunks_of,
+                                       prefill_chunks_of, splice_kv_blocks,
                                        supports_chunked_prefill)
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
+from repro_torch.serving.prefix_cache import PrefixBlockStore
 
 
 def serving_matmul_problems(cfg: ModelConfig, batch_size: int,
@@ -117,22 +126,33 @@ class DecodeEngine:
                  max_len: int, sampler: SamplerConfig | None = None,
                  matmul_policy: str | None = None, prefill_chunk: int = 32,
                  device: str | torch.device | None = None, mesh=None,
-                 prefix_cache=False, draft=None):
+                 prefix_cache=False, prefix_cache_mb: float = 64.0,
+                 draft=None):
         """Serve ``params`` (the ``quantize_for_serving`` tree) on ``device``
         (default ``cuda``; raises when there is none).
 
         ``matmul_policy`` overrides ``cfg.matmul_policy`` for every ternary
         projection ("auto" | "prior" | "fixed:<kernel>").  ``prefill_chunk``
         sets the admission chunk (clamped to the ring on windowed configs).
-        ``mesh``, ``prefix_cache`` and ``draft`` belong to features not
-        ported yet and raise when set."""
-        for name, value in (("mesh", mesh), ("prefix_cache", prefix_cache),
-                            ("draft", draft)):
-            if value is not None and value is not False:
+
+        ``prefix_cache`` turns on hashed shared-prefix KV reuse: pass True
+        (a fresh :class:`PrefixBlockStore` with a ``prefix_cache_mb`` byte
+        budget) or a store instance to share across engines of the same
+        geometry.  Admission then consults the store per prompt block (block
+        = one ``prefill_chunk``), splices cached KV slabs instead of
+        recomputing hit blocks, and publishes each freshly computed full
+        block; on windowed configs reuse depth is capped at the ring length.
+        The slabs are device memory beside the KV cache, counted against
+        the budget.
+
+        ``mesh`` and ``draft`` belong to features not ported yet and raise
+        when set."""
+        for name, value in (("mesh", mesh), ("draft", draft)):
+            if value is not None:
                 raise NotImplementedError(
                     f"DecodeEngine({name}=...) is not ported yet: the port "
                     f"serves single-device continuous batching without "
-                    f"prefix caching or speculative decoding")
+                    f"mesh sharding or speculative decoding")
         self.device = resolve_device(device)
         if matmul_policy is not None:
             cfg = cfg.with_(matmul_policy=matmul_policy)
@@ -145,11 +165,45 @@ class DecodeEngine:
         self.batch_size = batch_size  # ScheduleBackend protocol name
         self.max_len = max_len
         self.sampler = sampler or SamplerConfig()
-        self.prefill_chunk = max(1, min(prefill_chunk, cache_len(cfg, max_len)))
+        self._CL = cache_len(cfg, max_len)
+        self.prefill_chunk = max(1, min(prefill_chunk, self._CL))
+        self.prefix_store = self._make_prefix_store(prefix_cache,
+                                                    prefix_cache_mb)
         params = _to_device(params, self.device)
         self.params = bind_serving_weights(params, cfg)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.sampler.seed)
+
+    def _make_prefix_store(self, prefix_cache, prefix_cache_mb: float):
+        """Resolve the ``prefix_cache`` argument into a
+        :class:`PrefixBlockStore` (or None).  The store's hash namespace
+        binds the KV-producing geometry (config name, depth, kv-head shape;
+        the JAX package's string, byte for byte), so slabs can never be
+        replayed across engines whose caches they would not fit."""
+        # identity checks, not truthiness: an EMPTY store instance is falsy
+        # (len() == 0) but must still be wired in and validated
+        if prefix_cache is None or prefix_cache is False:
+            return None
+        c = self.cfg
+        ns = (f"{c.name}:{c.n_layers}:{c.n_kv_heads}:{c.head_dim}:"
+              f"{c.d_model}").encode()
+        if prefix_cache is True:
+            return PrefixBlockStore(
+                self.prefill_chunk,
+                max_bytes=max(1, int(prefix_cache_mb * (1 << 20))),
+                namespace=ns)
+        store = prefix_cache
+        if store.block_tokens != self.prefill_chunk:
+            raise ValueError(
+                f"prefix store block size {store.block_tokens} != engine "
+                f"prefill_chunk {self.prefill_chunk}: blocks are admission "
+                f"chunks, the sizes must agree")
+        if store.namespace != ns:
+            raise ValueError(
+                "prefix store namespace mismatch: the store was built for a "
+                "different model geometry; sharing it would splice foreign "
+                "KV slabs")
+        return store
 
     # ------------------------------------------------------------------
     # kernel autotuning over the engine's shapes
@@ -236,7 +290,14 @@ class DecodeEngine:
         """Begin admitting ``request`` into ``slot``: returns ``(state,
         pending)``; feed ``pending`` to :meth:`sched_admit_step` until it
         returns ``None``.  The prefill runs against a private single-row
-        cache, so decode steps on the other rows proceed untouched."""
+        cache, so decode steps on the other rows proceed untouched.
+
+        With a prefix store, the store is consulted first: the longest
+        hashed-prefix run of cached blocks is spliced into the private cache
+        and chunked prefill resumes at the first miss.  The final chunk is
+        always computed: the slot needs its last-position logits, which no
+        KV slab carries.  Hashing runs on the host from the prompt list;
+        the slabs and splices stay on the device."""
         plen = self._validate_request(request)
         C, dev = self.prefill_chunk, self.device
         prompt = np.asarray(request.prompt, np.int64)
@@ -248,22 +309,72 @@ class DecodeEngine:
             pos[0, :valid] = np.arange(start, start + valid)
             chunks.append((torch.from_numpy(toks).to(dev),
                            torch.from_numpy(pos).to(dev), valid - 1))
-        pending = {"request": request, "slot": slot, "chunks": chunks, "i": 0,
-                   "cache": init_cache(self.cfg, 1, self.max_len, device=dev),
-                   "logits1": None}
+        cache1 = init_cache(self.cfg, 1, self.max_len, device=dev)
+        hits, hashes = 0, []
+        store = self.prefix_store
+        if store is not None:
+            hashes = store.block_hashes(prompt,
+                                        n_blocks=self._publishable_blocks(plen))
+            # reusable depth: full blocks strictly before the final chunk;
+            # the publishable cap already bounds depth at the ring length
+            hits = store.match(hashes[:min(len(chunks) - 1, len(hashes))])
+            for i in range(hits):
+                splice_kv_blocks(self.cfg, cache1, store.get(hashes[i]), i * C)
+            store.stats.reused_tokens += hits * C
+        pending = {"request": request, "slot": slot, "chunks": chunks,
+                   "i": hits, "hashes": hashes, "cache": cache1}
         return state, pending
+
+    def _publishable_blocks(self, plen: int) -> int:
+        """How many leading full blocks of a ``plen``-token prompt the
+        prefix store may hold: every full ``prefill_chunk`` block, capped on
+        windowed configs at the blocks fully inside the first ``CL``
+        positions — deeper blocks are overwritten in the ring before the
+        prompt's tail attends them, so their slabs could neither be
+        extracted after prefill-time wraparound nor spliced usefully."""
+        n_full = plen // self.prefill_chunk
+        if self.cfg.window:
+            n_full = min(n_full, self._CL // self.prefill_chunk)
+        return n_full
 
     def sched_admit_step(self, state: dict, pending: dict):
         """Prefill one prompt chunk; on the last one splice the row into the
-        live state and arm the slot.  Returns ``(state, pending | None)``."""
-        toks, pos, take = pending["chunks"][pending["i"]]
+        live state and arm the slot.  Returns ``(state, pending | None)``.
+
+        With a prefix store, each freshly computed full block within reuse
+        depth is extracted from the just-written ring slots and published,
+        so the next request sharing the prefix splices instead of
+        recomputing."""
+        i = pending["i"]
+        toks, pos, take = pending["chunks"][i]
         pending["cache"], logits1 = model_prefill_chunk(
             self.params, self.cfg, pending["cache"], toks, pos, take)
+        hashes = pending["hashes"]
+        if i < len(hashes) and hashes[i] not in self.prefix_store:
+            C = self.prefill_chunk
+            self.prefix_store.put(hashes[i], extract_kv_blocks(
+                self.cfg, pending["cache"], i * C, C))
         pending["i"] += 1
         if pending["i"] < len(pending["chunks"]):
             return state, pending
         return self._commit(state, pending["slot"], pending["cache"],
                             logits1[0], pending["request"]), None
+
+    def prefix_match_len(self, request: Request) -> int:
+        """Cached-prefix depth for ``request`` in tokens: how much prefill
+        admission would skip right now.  A read-only probe (no LRU bump, no
+        hit/miss accounting): the scheduler calls it per queued request to
+        order admission by cache affinity.  0 without a store."""
+        if self.prefix_store is None:
+            return 0
+        plen = len(request.prompt)
+        n_reusable = min((plen - 1) // self.prefill_chunk,
+                         self._publishable_blocks(plen))
+        if n_reusable <= 0:
+            return 0
+        hashes = self.prefix_store.block_hashes(request.prompt,
+                                                n_blocks=n_reusable)
+        return self.prefix_store.match(hashes, peek=True) * self.prefill_chunk
 
     def _commit(self, state: dict, slot: int, cache1: dict, logits1,
                 request: Request) -> dict:

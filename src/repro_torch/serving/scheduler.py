@@ -2,7 +2,10 @@
 
 The scheduler keeps every slot busy:
 
-  * **FIFO admission queue** — ``submit()`` order is admission order;
+  * **FIFO admission queue** — ``submit()`` order is admission order,
+    except that on a backend with a prefix cache a cache-hot request may
+    be admitted ahead of older ones within a small window (cache affinity,
+    with a starvation bound);
   * **per-slot lifecycle** — the moment a slot's request finishes (stop
     token or token budget), the slot is refilled from the queue mid-flight,
     without touching the other rows or re-prefilling the batch;
@@ -29,8 +32,9 @@ The scheduler is pure host-side bookkeeping over a narrow backend protocol
 
 from __future__ import annotations
 
+import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Protocol, runtime_checkable
 
 from repro_torch.serving.engine import Request
@@ -54,6 +58,12 @@ class ScheduleBackend(Protocol):
     marks the slot armed.  The scheduler then interleaves admission chunks
     with decode steps under ``admission_budget``; backends without the pair
     are admitted atomically via ``sched_admit``.
+
+    A backend may also expose **cache affinity** —
+    ``prefix_match_len(request) -> int``, the number of prompt tokens whose
+    prefill a prefix cache would skip right now (a read-only probe) — which
+    lets the scheduler admit cache-hot requests first (see
+    ``ContinuousScheduler(cache_affinity=...)``).
     """
 
     batch_size: int
@@ -78,6 +88,19 @@ class SchedulerStats:
     emitted_tokens: int = 0
     #: prefill chunks advanced through incremental admission
     prefill_chunks: int = 0
+    #: per-request wait from ``submit()`` to backend admission on the
+    #: scheduler's clock, in admission order — the fairness cost of
+    #: cache-affinity reordering shows here next to the TTFT it buys
+    #: (zero-budget requests never occupy a slot and are left out).
+    #: Recorded on every admission path (FIFO, affinity reorder, atomic,
+    #: incremental), and mirrored per request in :attr:`queue_wait_by_rid`
+    queue_wait_s: list[float] = field(default_factory=list)
+    #: the same waits keyed on ``Request.rid`` (what the load generator's
+    #: per-tenant analysis joins against)
+    queue_wait_by_rid: dict[int, float] = field(default_factory=dict)
+    #: admissions that jumped ahead of an older queued request on cache
+    #: affinity (0 under pure FIFO)
+    affinity_reorders: int = 0
 
     @property
     def decode_steps(self) -> int:
@@ -85,33 +108,77 @@ class SchedulerStats:
         report as decode steps."""
         return self.steps - self.admission_steps
 
+    def queue_wait_summary(self) -> dict:
+        """mean/p50/max of per-request queue wait (seconds; zeros when no
+        request was admitted)."""
+        if not self.queue_wait_s:
+            return {"mean": 0.0, "p50": 0.0, "max": 0.0}
+        w = sorted(self.queue_wait_s)
+        return {"mean": sum(w) / len(w), "p50": w[len(w) // 2], "max": w[-1]}
+
 
 class ContinuousScheduler:
     """FIFO continuous-batching scheduler over a :class:`ScheduleBackend`."""
 
     def __init__(self, backend: ScheduleBackend,
                  on_token: Callable[[Request, int], None] | None = None,
-                 admission_budget: int | None = None):
+                 admission_budget: int | None = None,
+                 cache_affinity: bool = True, affinity_window: int = 8,
+                 max_affinity_skips: int = 4,
+                 clock: Callable[[], float] | None = None,
+                 dynamic_spec_k: bool = False):
         """``admission_budget`` caps how many prefill chunks advance per
         :meth:`step` across all in-flight admissions (None = finish each
         admission within the step it starts).  With a budget, a long prompt
         is admitted a few chunks at a time while co-batched live slots keep
         decoding — bounding their time-to-first/next-token.  Only effective
         on backends implementing incremental admission (see
-        :class:`ScheduleBackend`)."""
+        :class:`ScheduleBackend`).
+
+        ``cache_affinity`` orders admission by prefix-cache affinity on
+        backends that expose ``prefix_match_len(request) -> int`` (e.g. a
+        :class:`~repro_torch.serving.engine.DecodeEngine` with a prefix
+        store): each free slot admits the deepest-matching request among the
+        first ``affinity_window`` queued, so a request whose shared prefix
+        is hot runs while the blocks are still resident.  The FIFO fairness
+        bound: ties (including the no-store all-zero case) go to the oldest
+        request, and once the queue head has been jumped
+        ``max_affinity_skips`` times it is admitted unconditionally.
+
+        ``clock`` is the time source for queue-wait accounting (default
+        ``time.perf_counter``); a virtual-clock load generator injects its
+        own.  ``dynamic_spec_k`` belongs to speculative decoding, which is
+        not ported yet, and raises when set."""
         if admission_budget is not None and admission_budget < 1:
             raise ValueError("admission_budget must be >= 1 (or None)")
+        if affinity_window < 1:
+            raise ValueError("affinity_window must be >= 1")
+        if max_affinity_skips < 0:
+            raise ValueError("max_affinity_skips must be >= 0")
+        if dynamic_spec_k:
+            raise NotImplementedError(
+                "ContinuousScheduler(dynamic_spec_k=True) is not ported yet: "
+                "it sizes speculative draft windows, and speculative "
+                "decoding is not ported")
         self.backend = backend
         self.B = backend.batch_size
         self.on_token = on_token
         self.admission_budget = admission_budget
+        self.cache_affinity = cache_affinity
+        self.affinity_window = affinity_window
+        self.max_affinity_skips = max_affinity_skips
+        self.clock = clock if clock is not None else time.perf_counter
+        #: request.rid → times an affinity pick jumped it while queued
+        self._skips: dict[int, int] = {}
+        #: request.rid → clock() at submit (queue-wait accounting)
+        self._enqueue_t: dict[int, float] = {}
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * self.B
         #: slot → (request, backend pending) for prefills in flight; dict
         #: order is admission order, so budget drains FIFO
         self.prefilling: dict[int, tuple[Request, Any]] = {}
         self.completed: list[Request] = []
-        #: requests in the order they were handed to the backend (FIFO proof)
+        #: requests in the order they were handed to the backend
         self.admission_order: list[Request] = []
         self.stats = SchedulerStats()
         self._state: Any = None
@@ -137,10 +204,48 @@ class ContinuousScheduler:
     # -- driving ------------------------------------------------------------
 
     def submit(self, request: Request) -> None:
-        """Enqueue a request (FIFO).  Safe to call mid-run, between steps."""
+        """Enqueue a request (FIFO arrival order; admission may reorder
+        within the affinity window).  Safe to call mid-run, between
+        steps."""
         if request.done:
             raise ValueError("request already completed; submit a fresh one")
+        self._enqueue_t[request.rid] = self.clock()
         self.queue.append(request)
+
+    def _pop_next(self) -> Request:
+        """Pop the next request to admit.  Pure FIFO unless cache affinity
+        is on and the backend can score prefix matches; then the deepest
+        match within the lookahead window wins, ties to the oldest, and a
+        head that has been jumped ``max_affinity_skips`` times is forced
+        (the starvation bound)."""
+        match_len = getattr(self.backend, "prefix_match_len", None)
+        if not self.cache_affinity or match_len is None or len(self.queue) == 1:
+            return self.queue.popleft()
+        head = self.queue[0]
+        if self._skips.get(head.rid, 0) >= self.max_affinity_skips:
+            self._skips.pop(head.rid, None)
+            return self.queue.popleft()
+        best_i, best = 0, -1
+        for i in range(min(len(self.queue), self.affinity_window)):
+            m = match_len(self.queue[i])
+            if m > best:
+                best_i, best = i, m
+        req = self.queue[best_i]
+        del self.queue[best_i]
+        self._skips.pop(req.rid, None)
+        if best_i > 0:
+            self.stats.affinity_reorders += 1
+            for j in range(best_i):  # everyone older than the pick was jumped
+                jumped = self.queue[j]
+                self._skips[jumped.rid] = self._skips.get(jumped.rid, 0) + 1
+        return req
+
+    def _record_admission(self, req: Request) -> None:
+        t0 = self._enqueue_t.pop(req.rid, None)
+        if t0 is not None:
+            wait = self.clock() - t0
+            self.stats.queue_wait_s.append(wait)
+            self.stats.queue_wait_by_rid[req.rid] = wait
 
     def _admit_free_slots(self) -> None:
         start = getattr(self.backend, "sched_admit_start", None)
@@ -148,9 +253,10 @@ class ContinuousScheduler:
             if self.slots[slot] is not None or slot in self.prefilling:
                 continue
             while self.queue:
-                req = self.queue.popleft()
+                req = self._pop_next()
                 if req.max_new_tokens <= 0:  # zero-budget: completes at once
                     req.done = True
+                    self._enqueue_t.pop(req.rid, None)
                     self.completed.append(req)
                     self.stats.completed += 1
                     continue
@@ -165,6 +271,7 @@ class ContinuousScheduler:
                     else:
                         self.prefilling[slot] = (req, pend)
                 self.admission_order.append(req)
+                self._record_admission(req)
                 self.stats.admitted += 1
                 break
 
@@ -228,7 +335,7 @@ class ContinuousScheduler:
         """Drain: step until every submitted request completes.
 
         Returns completed requests in completion order (``admission_order``
-        has FIFO order).  ``max_steps`` bounds runaway loops (RuntimeError).
+        has admission order).  ``max_steps`` bounds runaway loops (RuntimeError).
         """
         steps = 0
         while self.pending:

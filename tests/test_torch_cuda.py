@@ -1041,3 +1041,73 @@ def test_tl2_kernel_refuses_x_wider_than_the_words(cuda):
     with pytest.raises(ValueError, match="cover"):
         ttl2.tl2_matmul(torch.zeros((2, 51), device=cuda), words, 50)
     assert ttl2.tl2_matmul.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# prefix cache on the card: block extract/splice and cold-store serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window,start,length", [(0, 8, 8), (0, 24, 8),
+                                                 (16, 8, 8), (16, 12, 8)])
+def test_kv_block_extract_and_splice_on_cuda_equal_cpu(cuda, window, start,
+                                                       length):
+    """Both move bytes, so the card's results equal the CPU's bitwise; at
+    window 16 the blocks at 12 and past 16 wrap the ring."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import decode as tdecode
+
+    cfg = get_smoke_config("bitnet-b1.58-2b").with_(window=window)
+    g = torch.Generator().manual_seed(start + window)
+    src = tdecode.init_cache(cfg, 1, 32, device="cpu")
+    dst = tdecode.init_cache(cfg, 1, 32, device="cpu")
+    for c in (src, dst):
+        for name in ("k", "v"):
+            c[name].copy_(torch.randn(c[name].shape, generator=g))
+        c["pos"].copy_(torch.randint(-1, 32, c["pos"].shape, generator=g))
+    src_card = {k: v.to(cuda) for k, v in src.items()}
+    dst_card = {k: v.to(cuda) for k, v in dst.items()}
+    want = tdecode.extract_kv_blocks(cfg, src, start, length)
+    got = tdecode.extract_kv_blocks(cfg, src_card, start, length)
+    spliced = tdecode.splice_kv_blocks(cfg, dst_card, got, start)
+    tdecode.splice_kv_blocks(cfg, dst, want, start)
+    torch.cuda.synchronize()
+    for name in ("k", "v"):
+        assert torch.equal(got[name].cpu(), want[name])
+    for name in ("k", "v", "pos"):
+        assert torch.equal(spliced[name].cpu(), dst[name])
+
+
+def test_cold_prefix_store_streams_equal_no_store_on_cuda(cuda, tmp_path,
+                                                          monkeypatch):
+    """A reduced bitnet on the card, on the prior: with a store that starts
+    empty every stream equals the engine's without one, the store hits,
+    and ``lut_gather`` launches in both runs."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.decode import init_serving_params
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    tdispatch.reset_autotune_cache()
+    cfg = get_smoke_config("bitnet-b1.58-2b")
+    served = init_serving_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(2, cfg.vocab_size, size=24).tolist()
+    prompts = [shared + rng.integers(2, cfg.vocab_size, size=n).tolist()
+               for n in (5, 11, 2, 19)] + [rng.integers(2, 400, 9).tolist()]
+    runs = {}
+    for store in (False, True):
+        eng = DecodeEngine(served, cfg, batch_size=2, max_len=64,
+                           prefill_chunk=8, device=cuda, prefix_cache=store)
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        tdispatch.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        assert tdispatch.launch_counts()["lut_gather"] > 0
+        assert all(r.done and len(r.out) == 6 for r in reqs)
+        runs[store] = ([r.out for r in reqs], eng)
+    assert runs[True][0] == runs[False][0]
+    st = runs[True][1].prefix_store.stats
+    assert st.hit_blocks > 0 and st.reused_tokens > 0
+    tdispatch.reset_autotune_cache()

@@ -246,8 +246,7 @@ def test_engine_without_device_needs_a_card():
         tengine.DecodeEngine({}, tcfg, batch_size=1, max_len=16)
 
 
-@pytest.mark.parametrize("kwarg", [{"mesh": object()}, {"prefix_cache": True},
-                                   {"draft": object()}])
+@pytest.mark.parametrize("kwarg", [{"mesh": object()}, {"draft": object()}])
 def test_engine_rejects_features_not_ported(kwarg):
     with pytest.raises(NotImplementedError, match="not ported"):
         tengine.DecodeEngine({}, t_smoke(ARCH), batch_size=1, max_len=16,
