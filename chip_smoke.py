@@ -24,14 +24,16 @@ bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
   * traffic (after the prior paths, before autotune): the first 12
     arrivals of the ``agentic`` scenario (its lengths kept, arrivals cut),
     replayed open-loop on the wall clock by ``LoadGenerator`` at batch 4,
-    ``max_len`` from the scenario's geometry, twice on fresh engines over
-    the same weights: without a prefix store and with one that starts
-    empty (512 MiB, so nothing is evicted).  Every request's token stream
-    must be the same in both replays (a dense step computes each row on its
-    own, and admission prefills on a private single-row cache, so which
-    rows share a batch changes no stream), the store replay must prefill
-    fewer chunks and hit at least once, and ``lut_gather`` must launch in
-    both;
+    ``max_len`` from the scenario's geometry, three times on fresh engines
+    over the same weights: without a prefix store, with one that starts
+    empty (512 MiB, so nothing is evicted), and with one of the engine's
+    default 64 MiB (27 blocks at this width, so LRU eviction runs).  Every
+    request's token stream must be the same in all three replays (a dense
+    step computes each row on its own, and admission prefills on a private
+    single-row cache, so which rows share a batch changes no stream), the
+    512 MiB replay must prefill fewer chunks and hit at least once, the
+    64 MiB replay must evict at least one block, and ``lut_gather`` must
+    launch in each;
 
 then, with bitnet's tree freed, phi3.5-moe-42b-a6.6b (32 layers, d_model
 4096, 16 experts top-2, d_ff 6400, an MoE FFN on every layer) on these:
@@ -151,11 +153,12 @@ PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
          "moe_batch4": (MOE_ARCH, 4, "bfloat16", None),
          "moe_int8_w2a8": (MOE_ARCH, 4, "int8", "fixed:w2a8")}
 #: the traffic phase: scenario, arrivals kept (the scenario's lengths are
-#: kept whole), and the store's budget (large enough that nothing is
-#: evicted)
+#: kept whole), and the stores' budgets: one large enough that nothing is
+#: evicted, and the engine's default, which must evict
 TRAFFIC_SCENARIO = "agentic"
 TRAFFIC_REQUESTS = 12
 TRAFFIC_STORE_MB = 512.0
+TRAFFIC_EVICT_MB = 64.0
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -626,12 +629,14 @@ def check_launches(counts: dict, expect: set) -> None:
 def traffic_phase(torch, served, cfg, checked: set) -> dict:
     """Replay the first ``TRAFFIC_REQUESTS`` arrivals of
     ``TRAFFIC_SCENARIO`` open-loop on the wall clock at batch 4, on a fresh
-    engine without a prefix store and then on one whose store starts
-    empty; each replay is driven with the launch counters set to 0 just
-    before it and read just after.  Fails unless every request's stream is
-    the same in both, the store replay prefilled fewer chunks and hit at
-    least once, and each replay launched exactly the path's selected hand
-    kernels (``lut_gather`` on the prior).  Returns ``{replay: record}``."""
+    engine without a prefix store, then on one whose store starts empty
+    with ``TRAFFIC_STORE_MB``, then on one with ``TRAFFIC_EVICT_MB``; each
+    replay is driven with the launch counters set to 0 just before it and
+    read just after.  Fails unless every request's stream is the same in
+    all three, the large store's replay prefilled fewer chunks and hit at
+    least once, the small store evicted at least one block, and each replay
+    launched exactly the path's selected hand kernels (``lut_gather`` on
+    the prior).  Returns ``{replay: record}``."""
     from dataclasses import replace
 
     from repro_torch.kernels.dispatch import (launch_counts,
@@ -654,11 +659,12 @@ def traffic_phase(torch, served, cfg, checked: set) -> dict:
     need = scenario.max_prompt_len() + scenario.max_new_tokens() + 1
     max_len = -(-need // 16) * 16
     out, streams = {}, {}
-    for name, store in (("no_store", False), ("store", True)):
+    for name, store, mb in (("no_store", False, TRAFFIC_STORE_MB),
+                            ("store", True, TRAFFIC_STORE_MB),
+                            ("store_evicting", True, TRAFFIC_EVICT_MB)):
         engine = DecodeEngine(served, cfg, batch_size=batch, max_len=max_len,
                               prefill_chunk=PREFILL_CHUNK, device=DEVICE,
-                              prefix_cache=store,
-                              prefix_cache_mb=TRAFFIC_STORE_MB)
+                              prefix_cache=store, prefix_cache_mb=mb)
         # set-up, untimed: derive the kernels' weight encodings with a
         # prompt shorter than a block, which leaves the store empty
         engine.serve(make_requests([8], 2, cfg.vocab_size, SEED + 99))
@@ -698,6 +704,7 @@ def traffic_phase(torch, served, cfg, checked: set) -> dict:
         if engine.prefix_store is not None:
             ps = engine.prefix_store
             rec["prefix_store"] = {
+                "budget_mib": mb,
                 "lookups": ps.stats.lookups,
                 "hit_blocks": ps.stats.hit_blocks,
                 "reused_tokens": ps.stats.reused_tokens,
@@ -708,16 +715,21 @@ def traffic_phase(torch, served, cfg, checked: set) -> dict:
         out[name] = rec
         del engine, gen
         torch.cuda.empty_cache()
-    same = [a == b for a, b in zip(streams["no_store"], streams["store"])]
-    if not all(same):
-        raise AssertionError(f"traffic: streams of requests "
-                             f"{[i for i, ok in enumerate(same) if not ok]} "
-                             f"differ with the prefix store")
+    for name in ("store", "store_evicting"):
+        same = [a == b for a, b in zip(streams["no_store"], streams[name])]
+        if not all(same):
+            raise AssertionError(
+                f"traffic: streams of requests "
+                f"{[i for i, ok in enumerate(same) if not ok]} differ in "
+                f"the {name} replay")
     if not out["store"]["prefill_chunks"] < out["no_store"]["prefill_chunks"]:
         raise AssertionError("traffic: the store replay prefilled no fewer "
                              "chunks")
     if out["store"]["prefix_store"]["hit_blocks"] < 1:
         raise AssertionError("traffic: the store replay had no hit")
+    if out["store_evicting"]["prefix_store"]["evicted_blocks"] < 1:
+        raise AssertionError(f"traffic: the {TRAFFIC_EVICT_MB:g} MiB store "
+                             f"evicted no block")
     return out
 
 

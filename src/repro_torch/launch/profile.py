@@ -7,12 +7,15 @@ JSON line:
 wall time per step, device busy time per step (the summed device time of
 every kernel and copy on the card), the device's idle share, kernel launches
 per step, the launches of each hand kernel per step, and the kernels that
-take the most device time.
+take the most device time.  ``--scenario NAME`` sizes the KV ring as
+``launch.serve --scenario`` does (max_len raised to the scenario's longest
+prompt plus its longest answer), so a step attends the ring it would
+attend under that traffic.
 
 Usage (on the card):
   python -m repro_torch.launch.profile --arch bitnet-b1.58-2b --batch 4 \
       [--steps 8] [--act-dtype none|int8] [--policy auto] [--smoke] \
-      [--max-len 256]
+      [--scenario chat|rag|agentic|code]
   python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
 """
 
@@ -29,8 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
+from repro_torch.launch.serve import scenario_max_len
 from repro_torch.models.decode import init_serving_params
 from repro_torch.serving.engine import DecodeEngine, Request
+from repro_torch.serving.workload import get_scenario
 
 
 def _self_device_us(evt) -> float:
@@ -91,9 +96,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--act-dtype", choices=["none", "int8"], default="none")
     ap.add_argument("--policy", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-len", type=int, default=256,
-                    help="the engine's max_len: every step attends its "
-                    "whole KV ring of this length")
+    ap.add_argument("--scenario", default=None,
+                    help="size max_len from this workload's geometry, as "
+                    "launch.serve --scenario does (default 256)")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -102,10 +107,16 @@ def main(argv: list[str] | None = None) -> dict:
         cfg = cfg.with_(act_dtype=args.act_dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     served = init_serving_params(cfg, gen, device)
+    max_len = 256
+    if args.scenario:
+        scenario = get_scenario(args.scenario)
+        if args.smoke:
+            scenario = scenario.smoke()
+        max_len = scenario_max_len(scenario, max_len)
     engine = DecodeEngine(served, cfg, batch_size=args.batch,
-                          max_len=args.max_len, matmul_policy=args.policy,
+                          max_len=max_len, matmul_policy=args.policy,
                           device=device)
-    out = {"arch": cfg.name, "batch": args.batch, "max_len": args.max_len,
+    out = {"arch": cfg.name, "batch": args.batch, "max_len": max_len,
            "act_dtype": cfg.act_dtype,
            "policy": args.policy or "auto",
            "gpu": torch.cuda.get_device_name(device),

@@ -118,9 +118,9 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
         scenario = get_scenario(args.scenario)
         if args.smoke:
             scenario = scenario.smoke()
-        need = scenario.max_prompt_len() + scenario.max_new_tokens() + 1
-        if args.max_len < need:  # the scenario dictates the geometry
-            args.max_len = -(-need // 16) * 16
+        need = scenario_max_len(scenario, args.max_len)
+        if need != args.max_len:  # the scenario dictates the geometry
+            args.max_len = need
             print(f"[serve] scenario {scenario.name}: max_len raised to "
                   f"{args.max_len}")
     engine = DecodeEngine(served, cfg, batch_size=args.batch,
@@ -174,6 +174,13 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
 
 def _launch_report() -> str:
     return ", ".join(f"{k} {v}" for k, v in launch_counts().items())
+
+
+def scenario_max_len(scenario, max_len: int) -> int:
+    """``max_len`` raised, if it must be, to hold the scenario's longest
+    prompt plus its longest answer (rounded up to a multiple of 16)."""
+    need = scenario.max_prompt_len() + scenario.max_new_tokens() + 1
+    return max_len if max_len >= need else -(-need // 16) * 16
 
 
 def tenant_lines(scenario, res: LoadResult) -> dict:

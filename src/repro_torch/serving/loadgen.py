@@ -219,20 +219,16 @@ class LoadGenerator:
 
     ``backend`` is any :class:`~repro_torch.serving.scheduler.ScheduleBackend`
     (a real :class:`~repro_torch.serving.engine.DecodeEngine` or a test
-    fake).  Scheduler knobs (``admission_budget``, ``cache_affinity``)
-    pass through so every serving feature can be measured under load;
-    ``dynamic_spec_k`` belongs to speculative decoding, not ported yet, and
-    the scheduler raises when it is set.  See the module docstring for the
-    two clocks."""
+    fake).  ``admission_budget`` passes through to the scheduler, which
+    orders admission by cache affinity on a backend with a prefix store.
+    See the module docstring for the two clocks."""
 
     def __init__(self, backend: Any, trace: list[ArrivalEvent], *,
                  clock: str = "virtual",
                  decode_step_cost_s: float = 0.01,
                  prefill_chunk_cost_s: float = 0.02,
                  stop_token: int | None = None,
-                 admission_budget: int | None = None,
-                 cache_affinity: bool = True,
-                 dynamic_spec_k: bool = False):
+                 admission_budget: int | None = None):
         if clock not in ("virtual", "wall"):
             raise ValueError(f"clock must be 'virtual' or 'wall', got "
                              f"{clock!r}")
@@ -250,8 +246,6 @@ class LoadGenerator:
         self.sched = ContinuousScheduler(
             backend, on_token=self._on_token,
             admission_budget=admission_budget,
-            cache_affinity=cache_affinity,
-            dynamic_spec_k=dynamic_spec_k,
             clock=self._read_clock)
         self.records: dict[int, RequestRecord] = {}
 

@@ -41,6 +41,13 @@ from repro_torch.serving.engine import Request
 
 __all__ = ["ContinuousScheduler", "ScheduleBackend", "SchedulerStats", "Request"]
 
+#: cache-affinity lookahead: a free slot admits the deepest prefix match
+#: among the first this many queued requests
+AFFINITY_WINDOW = 8
+#: the starvation bound: a queue head jumped this many times on affinity is
+#: admitted next, whatever the matches behind it
+MAX_AFFINITY_SKIPS = 4
+
 
 @runtime_checkable
 class ScheduleBackend(Protocol):
@@ -63,7 +70,7 @@ class ScheduleBackend(Protocol):
     ``prefix_match_len(request) -> int``, the number of prompt tokens whose
     prefill a prefix cache would skip right now (a read-only probe) — which
     lets the scheduler admit cache-hot requests first (see
-    ``ContinuousScheduler(cache_affinity=...)``).
+    :meth:`ContinuousScheduler._pop_next`).
     """
 
     batch_size: int
@@ -123,10 +130,7 @@ class ContinuousScheduler:
     def __init__(self, backend: ScheduleBackend,
                  on_token: Callable[[Request, int], None] | None = None,
                  admission_budget: int | None = None,
-                 cache_affinity: bool = True, affinity_window: int = 8,
-                 max_affinity_skips: int = 4,
-                 clock: Callable[[], float] | None = None,
-                 dynamic_spec_k: bool = False):
+                 clock: Callable[[], float] | None = None):
         """``admission_budget`` caps how many prefill chunks advance per
         :meth:`step` across all in-flight admissions (None = finish each
         admission within the step it starts).  With a budget, a long prompt
@@ -135,38 +139,25 @@ class ContinuousScheduler:
         on backends implementing incremental admission (see
         :class:`ScheduleBackend`).
 
-        ``cache_affinity`` orders admission by prefix-cache affinity on
-        backends that expose ``prefix_match_len(request) -> int`` (e.g. a
-        :class:`~repro_torch.serving.engine.DecodeEngine` with a prefix
-        store): each free slot admits the deepest-matching request among the
-        first ``affinity_window`` queued, so a request whose shared prefix
-        is hot runs while the blocks are still resident.  The FIFO fairness
-        bound: ties (including the no-store all-zero case) go to the oldest
-        request, and once the queue head has been jumped
-        ``max_affinity_skips`` times it is admitted unconditionally.
+        On backends that expose ``prefix_match_len(request) -> int`` (a
+        :class:`~repro_torch.serving.engine.DecodeEngine`), admission is
+        ordered by prefix-cache affinity: each free slot admits the
+        deepest-matching request among the first :data:`AFFINITY_WINDOW`
+        queued, so a request whose shared prefix is hot runs while the
+        blocks are still resident.  The FIFO fairness bound: ties
+        (including the no-store all-zero case) go to the oldest request,
+        and once the queue head has been jumped :data:`MAX_AFFINITY_SKIPS`
+        times it is admitted unconditionally.
 
         ``clock`` is the time source for queue-wait accounting (default
         ``time.perf_counter``); a virtual-clock load generator injects its
-        own.  ``dynamic_spec_k`` belongs to speculative decoding, which is
-        not ported yet, and raises when set."""
+        own."""
         if admission_budget is not None and admission_budget < 1:
             raise ValueError("admission_budget must be >= 1 (or None)")
-        if affinity_window < 1:
-            raise ValueError("affinity_window must be >= 1")
-        if max_affinity_skips < 0:
-            raise ValueError("max_affinity_skips must be >= 0")
-        if dynamic_spec_k:
-            raise NotImplementedError(
-                "ContinuousScheduler(dynamic_spec_k=True) is not ported yet: "
-                "it sizes speculative draft windows, and speculative "
-                "decoding is not ported")
         self.backend = backend
         self.B = backend.batch_size
         self.on_token = on_token
         self.admission_budget = admission_budget
-        self.cache_affinity = cache_affinity
-        self.affinity_window = affinity_window
-        self.max_affinity_skips = max_affinity_skips
         self.clock = clock if clock is not None else time.perf_counter
         #: request.rid → times an affinity pick jumped it while queued
         self._skips: dict[int, int] = {}
@@ -213,20 +204,20 @@ class ContinuousScheduler:
         self.queue.append(request)
 
     def _pop_next(self) -> Request:
-        """Pop the next request to admit.  Pure FIFO unless cache affinity
-        is on and the backend can score prefix matches; then the deepest
-        match within the lookahead window wins, ties to the oldest, and a
-        head that has been jumped ``max_affinity_skips`` times is forced
-        (the starvation bound)."""
+        """Pop the next request to admit.  Pure FIFO unless the backend can
+        score prefix matches; then the deepest match within the lookahead
+        window wins, ties to the oldest, and a head that has been jumped
+        :data:`MAX_AFFINITY_SKIPS` times is forced (the starvation
+        bound)."""
         match_len = getattr(self.backend, "prefix_match_len", None)
-        if not self.cache_affinity or match_len is None or len(self.queue) == 1:
+        if match_len is None or len(self.queue) == 1:
             return self.queue.popleft()
         head = self.queue[0]
-        if self._skips.get(head.rid, 0) >= self.max_affinity_skips:
+        if self._skips.get(head.rid, 0) >= MAX_AFFINITY_SKIPS:
             self._skips.pop(head.rid, None)
             return self.queue.popleft()
         best_i, best = 0, -1
-        for i in range(min(len(self.queue), self.affinity_window)):
+        for i in range(min(len(self.queue), AFFINITY_WINDOW)):
             m = match_len(self.queue[i])
             if m > best:
                 best_i, best = i, m

@@ -36,6 +36,8 @@ from repro.models import decode as jdecode
 from repro.models import model as jmodel
 from repro.serving import engine as jengine
 from repro.serving.prefix_cache import chain_block_hashes as j_chain
+from repro.serving.scheduler import ContinuousScheduler as JScheduler
+from repro.serving.scheduler import Request as JRequest
 from repro_torch.configs.registry import get_smoke_config as t_smoke
 from repro_torch.convert import from_numpy_tree, to_numpy_tree
 from repro_torch.kernels import dispatch as tdispatch
@@ -44,7 +46,9 @@ from repro_torch.serving.engine import DecodeEngine, Request
 from repro_torch.serving.prefix_cache import (PrefixBlockStore,
                                               PrefixStoreStats,
                                               chain_block_hashes)
-from repro_torch.serving.scheduler import ContinuousScheduler, SchedulerStats
+from repro_torch.serving.scheduler import (AFFINITY_WINDOW,
+                                          MAX_AFFINITY_SKIPS,
+                                          ContinuousScheduler, SchedulerStats)
 from test_prefix_cache import AffinityFake  # noqa: E402
 
 ARCH = "bitnet-b1.58-2b"
@@ -430,67 +434,150 @@ def test_engine_rejects_mismatched_store(tiny):
 
 
 # ---------------------------------------------------------------------------
-# cache-affinity admission on the JAX tests' scripted fake backend (it
-# reads only ``max_new_tokens`` and ``_match`` of a request)
+# cache-affinity admission: the port's scheduler and the JAX package's,
+# driven on identical copies of the JAX tests' scripted fake backend (it
+# reads only ``max_new_tokens`` and ``_match`` of a request), each with a
+# clock that only the fake advances
 # ---------------------------------------------------------------------------
+
+
+class _ClockedFake(AffinityFake):
+    """``AffinityFake`` whose admissions and steps advance a shared clock
+    (by binary fractions, so both schedulers' waits compare exactly)."""
+
+    def __init__(self, batch_size=1):
+        super().__init__(batch_size)
+        self.now = 0.0
+
+    def sched_admit(self, state, slot, request):
+        self.now += 0.25
+        return super().sched_admit(state, slot, request)
+
+    def sched_step(self, state):
+        self.now += 1.0
+        return super().sched_step(state)
+
+
+class _NoProbe:
+    """The same fake without ``prefix_match_len``: a backend that cannot
+    score prefix matches (as an engine without a store scores every
+    request 0)."""
+
+    def __init__(self, batch_size=1):
+        self._fake = _ClockedFake(batch_size)
+        self.batch_size = batch_size
+        self.sched_start = self._fake.sched_start
+        self.sched_admit = self._fake.sched_admit
+        self.sched_step = self._fake.sched_step
+
+    @property
+    def now(self):
+        return self._fake.now
+
+
+def _run(specs, batch_size=1, probe=True, per_step=None):
+    """Serve ``specs`` (``(match, max_new_tokens)`` pairs) on the port's
+    scheduler and on the JAX package's, ``per_step`` submitted before each
+    step (None: all at once), and hold the two against each other: the
+    admission order, ``affinity_reorders`` and every request's queue wait
+    must be equal.  Returns the port's admission order (spec indices) and
+    stats."""
+    got = []
+    for sched_cls, req_cls in ((ContinuousScheduler, Request),
+                               (JScheduler, JRequest)):
+        backend = (_ClockedFake if probe else _NoProbe)(batch_size)
+        sched = sched_cls(backend, clock=lambda b=backend: b.now)
+        reqs = []
+        for match, new in specs:
+            r = req_cls(prompt=[1], max_new_tokens=new)
+            r._match = match
+            reqs.append(r)
+        todo = list(reqs)
+        for _ in range(1000):
+            take = len(todo) if per_step is None else per_step
+            for r in todo[:take]:
+                sched.submit(r)
+            del todo[:take]
+            if not todo and not sched.pending:
+                break
+            if sched.pending:
+                sched.step()
+        assert not todo and not sched.pending
+        idx = {r.rid: i for i, r in enumerate(reqs)}
+        got.append(([idx[r.rid] for r in sched.admission_order],
+                    sched.stats.affinity_reorders,
+                    list(sched.stats.queue_wait_s),
+                    {idx[rid]: w
+                     for rid, w in sched.stats.queue_wait_by_rid.items()},
+                    sched.stats))
+    assert got[0][:4] == got[1][:4]
+    return got[0][0], got[0][4]
+
+
+def test_affinity_admits_deepest_match_first():
+    admitted, stats = _run([(0, 1), (8, 1), (16, 1)])
+    assert admitted == [2, 1, 0]
+    assert stats.affinity_reorders == 2
+    assert len(stats.queue_wait_s) == 3 and min(stats.queue_wait_s) >= 0
+    assert len(stats.queue_wait_by_rid) == 3
+
+
+def test_affinity_ties_degrade_to_fifo():
+    admitted, stats = _run([(4, 1)] * 4)
+    assert admitted == [0, 1, 2, 3] and stats.affinity_reorders == 0
+
+
+def test_affinity_starvation_bound_forces_jumped_head():
+    """A cold head behind hot requests is jumped MAX_AFFINITY_SKIPS (4)
+    times, then admitted."""
+    assert MAX_AFFINITY_SKIPS == 4
+    admitted, stats = _run([(0, 1)] + [(8, 1)] * 6)
+    assert admitted[:5] == [1, 2, 3, 4, 0]
+    assert sorted(admitted) == list(range(7))
+    assert stats.affinity_reorders == 4
+
+
+def test_affinity_window_bounds_lookahead():
+    """The deepest match sits just past the AFFINITY_WINDOW (8): the
+    oldest is admitted first, then the match, now inside the window."""
+    assert AFFINITY_WINDOW == 8
+    admitted, _ = _run([(0, 1)] * 8 + [(16, 1)])
+    assert admitted[:2] == [0, 8]
+
+
+def test_cache_affinity_off_is_pure_fifo():
+    """A backend with no ``prefix_match_len`` is admitted FIFO."""
+    admitted, stats = _run([(0, 1), (16, 1), (8, 1)], probe=False)
+    assert admitted == [0, 1, 2] and stats.affinity_reorders == 0
+
+
+def test_queue_wait_excludes_zero_budget_requests():
+    admitted, stats = _run([(0, 1), (0, 0), (0, 1)])
+    assert admitted == [0, 2]
+    assert len(stats.queue_wait_s) == 2  # zero-budget: never admitted
+    assert len(stats.queue_wait_by_rid) == 2
+    s = stats.queue_wait_summary()
+    assert 0 <= s["mean"] <= s["max"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("batch_size,per_step", [(1, None), (2, 2), (3, 1)])
+def test_affinity_matches_reference_on_random_queues(seed, batch_size,
+                                                     per_step):
+    """Seeded queues of 24 requests (matches 0-16, budgets 0-3, some
+    arriving mid-run): admission order, reorders and every wait equal the
+    JAX scheduler's."""
+    rng = np.random.default_rng(seed)
+    specs = list(zip(rng.choice([0, 4, 8, 16], 24).tolist(),
+                     rng.integers(0, 4, 24).tolist()))
+    admitted, stats = _run(specs, batch_size, per_step=per_step)
+    assert sorted(admitted) == [i for i, (_, n) in enumerate(specs) if n]
 
 
 def _req(match=0, new=1):
     r = Request(prompt=[1], max_new_tokens=new)
     r._match = match
     return r
-
-
-def _run(reqs, **kw):
-    backend = AffinityFake()
-    sched = ContinuousScheduler(backend, **kw)
-    for r in reqs:
-        sched.submit(r)
-    sched.run(max_steps=100)
-    return backend.admitted, sched.stats
-
-
-def test_affinity_admits_deepest_match_first():
-    reqs = [_req(0), _req(8), _req(16)]
-    admitted, stats = _run(reqs)
-    assert admitted == [reqs[2], reqs[1], reqs[0]]
-    assert stats.affinity_reorders == 2
-    assert len(stats.queue_wait_s) == 3 and min(stats.queue_wait_s) >= 0
-    assert set(stats.queue_wait_by_rid) == {r.rid for r in reqs}
-
-
-def test_affinity_ties_degrade_to_fifo():
-    reqs = [_req(4) for _ in range(4)]
-    admitted, stats = _run(reqs)
-    assert admitted == reqs and stats.affinity_reorders == 0
-
-
-def test_affinity_starvation_bound_forces_jumped_head():
-    cold, hot = _req(0), [_req(8) for _ in range(5)]
-    admitted, _ = _run([cold, *hot], max_affinity_skips=2)
-    assert admitted[:3] == [hot[0], hot[1], cold]
-    assert {id(r) for r in admitted} == {id(r) for r in (cold, *hot)}
-
-
-def test_affinity_window_bounds_lookahead():
-    reqs = [_req(0), _req(0), _req(16)]
-    admitted, _ = _run(reqs, affinity_window=2)
-    assert admitted[0] is reqs[0]  # window [r0, r1]: a tie, the oldest
-
-
-def test_cache_affinity_off_is_pure_fifo():
-    reqs = [_req(0), _req(16)]
-    admitted, stats = _run(reqs, cache_affinity=False)
-    assert admitted == reqs and stats.affinity_reorders == 0
-
-
-def test_queue_wait_excludes_zero_budget_requests():
-    reqs = [_req(new=1), _req(new=0), _req(new=1)]
-    _, stats = _run(reqs)
-    assert len(stats.queue_wait_s) == 2  # zero-budget: never admitted
-    assert reqs[1].rid not in stats.queue_wait_by_rid
-    s = stats.queue_wait_summary()
-    assert 0 <= s["mean"] <= s["max"]
 
 
 def test_queue_wait_reads_the_injected_clock():
@@ -505,15 +592,6 @@ def test_queue_wait_reads_the_injected_clock():
     now[0] = 14.0
     sched.run(max_steps=10)
     assert sched.stats.queue_wait_s == [2.5, 4.0]
-
-
-def test_scheduler_rejects_bad_affinity_knobs_and_speculation():
-    with pytest.raises(ValueError, match="affinity_window"):
-        ContinuousScheduler(AffinityFake(), affinity_window=0)
-    with pytest.raises(ValueError, match="max_affinity_skips"):
-        ContinuousScheduler(AffinityFake(), max_affinity_skips=-1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousScheduler(AffinityFake(), dynamic_spec_k=True)
 
 
 # ---------------------------------------------------------------------------

@@ -200,8 +200,6 @@ def test_loadgen_rejects_bad_clocks_costs_and_traces():
             tloadgen.LoadGenerator(_Fake(4), trace, **kw)
     with pytest.raises(ValueError, match="empty"):
         tloadgen.LoadGenerator(_Fake(4), []).run()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tloadgen.LoadGenerator(_Fake(4), trace, dynamic_spec_k=True)
 
 
 # ---------------------------------------------------------------------------
