@@ -34,6 +34,20 @@ bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
     512 MiB replay must prefill fewer chunks and hit at least once, the
     64 MiB replay must evict at least one block, and ``lut_gather`` must
     launch in each;
+  * speculative (after the traffic phase, before autotune): batch 4,
+    ``spec_k`` 4, six requests (prompts of 3 to 120 tokens, 24 new tokens
+    each) through four slots, each spec engine held against a non-spec
+    engine with canonical greedy selection on the same target and
+    requests: ``spec_twin`` (the target with the ``wo`` scales of blocks
+    1..29 zeroed, so those blocks add exactly 0.0, and as draft its block 0
+    alone: every stream equal, acceptance at least 0.9), ``spec_draft2``
+    (the served bitnet with its first two blocks as draft: streams equal,
+    some proposals rejected) and ``spec_draft2_dynamic`` (the same pair
+    under dynamic ``spec_k``: streams equal, some request's last window
+    under 4); then ``verify_check``, teacher-forced on one ragged batch-4
+    cache: ``verify_step`` of 4 candidates within 2^-4 of 4 sequential
+    ``decode_step`` calls, and a rollback that leaves every rejected
+    slot's k, v and position bitwise as snapshotted;
 
 then, with bitnet's tree freed, phi3.5-moe-42b-a6.6b (32 layers, d_model
 4096, 16 experts top-2, d_ff 6400, an MoE FFN on every layer) on these:
@@ -77,6 +91,13 @@ Tolerances:
     and the same scales follow, so every int8 path (prior, autotuned,
     ``fixed:w2a8``, ``moe_int8_w2a8``) must equal ``fixed:ref`` exactly
     (atol 0).
+  * verify against sequential decode (``verify_check``): ``lut_gather``
+    plans its launch by M (16 at the verify, 4 at decode), so the two sum
+    each row in another order and the logits differ in f32 rounding: held
+    to 2^-4, the port's serving tolerance, and reported with whether they
+    are bitwise equal.  The spec streams are held equal to the non-spec
+    ones: both select on bf16-rounded logits, which absorbs that noise
+    unless a top logit lies within it of a rounding boundary.
   * MoE: the top-2 routing is discontinuous in the hidden state, so a
     one-ulp difference can send a token to another expert and move the
     logits by more than any summation-order tolerance.  Each MoE path is
@@ -159,6 +180,15 @@ TRAFFIC_SCENARIO = "agentic"
 TRAFFIC_REQUESTS = 12
 TRAFFIC_STORE_MB = 512.0
 TRAFFIC_EVICT_MB = 64.0
+#: the speculative phase: candidates a round, the requests' prompt lengths
+#: (six through four slots) and budgets, and the mismatched draft's depth
+#: (the served target's first blocks)
+SPEC_K = 4
+SPEC_LENGTHS = [3, 120, 17, 64, 33, 5]
+SPEC_NEW_TOKENS = 24
+SPEC_DRAFT_LAYERS = 2
+#: verify against sequential decode: the port's serving tolerance
+VERIFY_ATOL = 2.0 ** -4
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -419,14 +449,16 @@ def capacity(model: str, m: int) -> int:
 
 
 def path_selection(model: str, batch: int, act: str,
-                   policy: str | None = None) -> dict:
+                   policy: str | None = None, spec_k: int = 0) -> dict:
     """What dispatch selects on one serving path of ``model``: ``{shape:
-    kernel}`` for its decode M (the batch) and its prefill M (the chunk);
-    a dense shape is ``(M, K, N)``, a grouped one ``(E, C, K, N)``."""
+    kernel}`` for its decode M (the batch) and its prefill M (the chunk),
+    and with ``spec_k`` its verify M (batch x spec_k; a draft cut from the
+    model decodes and prefills at the first two); a dense shape is ``(M,
+    K, N)``, a grouped one ``(E, C, K, N)``."""
     from repro_torch.kernels.dispatch import select_kernel
 
     sel = {}
-    for m in (batch, PREFILL_CHUNK):
+    for m in (batch, PREFILL_CHUNK) + ((batch * spec_k,) if spec_k else ()):
         for k, n in LAYER_KN[model]:
             sel[(m, k, n)] = select_kernel(m, k, n, act, policy=policy).name
         for e, k, n in LAYER_EKN[model]:
@@ -449,7 +481,8 @@ def kernel_cases(model: str) -> list[tuple]:
     int8 also at the prefill chunk, M=32), each dense
     kernel ported after the first slice at decode (M=4) and prefill (M=32);
     phi3.5-moe's grouped kernels at decode (C=1) and at the admission chunk
-    (C=5); plus every one that a prior or pinned serving path selects."""
+    (C=5); plus every one that a prior, pinned or speculative serving path
+    selects (the speculative ones also at the verify, M=16)."""
     if model == ARCH:
         cases = {(ARCH, "lut_gather", 4, "bfloat16"),
                  (ARCH, "lut_gather", 32, "bfloat16"),
@@ -460,6 +493,8 @@ def kernel_cases(model: str) -> list[tuple]:
         for policy, act in PINNED.values():
             cases |= selected_cases(ARCH, path_selection(ARCH, 4, act,
                                                          policy), act)
+        cases |= selected_cases(ARCH, path_selection(
+            ARCH, 4, "bfloat16", None, SPEC_K), "bfloat16")
     else:
         cases = {(model, name, capacity(model, m), act)
                  for name, act in (("grouped_dequant", "bfloat16"),
@@ -731,6 +766,301 @@ def traffic_phase(torch, served, cfg, checked: set) -> dict:
         raise AssertionError(f"traffic: the {TRAFFIC_EVICT_MB:g} MiB store "
                              f"evicted no block")
     return out
+
+
+def tail_zeroed(blocks: dict) -> dict:
+    """The stacked blocks with the ``wo`` scales (attention and FFN output)
+    of every block but the first set to 0, in new scale tensors (the packed
+    bytes are shared): those blocks then add exactly 0.0 to the residual
+    stream, and the model computes what its first block alone does."""
+    out = {}
+    for key, v in blocks.items():
+        if isinstance(v, dict) and key == "wo":
+            scale = v["scale"].clone()
+            scale[1:] = 0
+            out[key] = dict(v, scale=scale)
+        elif isinstance(v, dict):
+            out[key] = tail_zeroed(v)
+        else:
+            out[key] = v
+    return out
+
+
+def first_blocks(served: dict, n: int) -> dict:
+    """The serving tree cut to its first ``n`` blocks (views), sharing the
+    embedding, final norm and LM head."""
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return node[:n]
+
+    return dict(served, blocks=cut(served["blocks"]))
+
+
+def run_requests(torch, engine, cfg, dynamic: bool = False):
+    """Serve ``SPEC_LENGTHS`` with ``SPEC_NEW_TOKENS`` each (after an
+    untimed one-request warm-up), with the launch counters set to 0 just
+    before and read just after.  Returns ``(requests, scheduler stats,
+    seconds, launch counts)``."""
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    engine.serve(make_requests([8], 2, cfg.vocab_size, SEED + 99))
+    torch.cuda.synchronize()
+    reqs = make_requests(SPEC_LENGTHS, SPEC_NEW_TOKENS, cfg.vocab_size,
+                         SEED + 24)
+    sched = ContinuousScheduler(engine, dynamic_spec_k=dynamic)
+    for r in reqs:
+        sched.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    for r in reqs:
+        if not (r.done and len(r.out) == SPEC_NEW_TOKENS) or \
+                not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid} ended with {r.out} "
+                                 f"(done={r.done})")
+    return reqs, sched.stats, dt, counts
+
+
+def spec_round_ms(torch, engine, cfg, rounds: int = 6):
+    """Wall time of one spec round with every slot live, and each hand
+    kernel's launches per round: admit one request per slot, two rounds of
+    warm-up, then ``rounds`` rounds ending in a synchronize."""
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+
+    state = engine.sched_start()
+    for slot, r in enumerate(make_requests(
+            [8] * engine.B, SPEC_K * (rounds + 3), cfg.vocab_size, SEED + 3)):
+        state = engine.sched_admit(state, slot, r)
+    for _ in range(2):
+        state = engine.sched_spec_step(state)[0]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state = engine.sched_spec_step(state)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / rounds * 1e3
+    return ms, {k: v / rounds for k, v in launch_counts().items() if v}
+
+
+def stream_mismatch(torch, tree, cfg, prompt, base, spec) -> dict:
+    """Where a spec stream first leaves its baseline: the request's
+    position ``t`` and the target's two largest bf16 logits there, taken
+    as the baseline takes them (one decode step a token at batch 4) and
+    as a verify of the 4 tokens before ``t`` takes them."""
+    from repro_torch.models.decode import decode_step, verify_step
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    t = next(i for i, (a, b) in enumerate(zip(base, spec)) if a != b)
+    eng = DecodeEngine(tree, cfg, batch_size=4, max_len=256,
+                       prefill_chunk=PREFILL_CHUNK, device=DEVICE)
+    dead = torch.full((4,), -1, dtype=torch.int32, device=DEVICE)
+    plen = len(prompt)
+
+    def admitted():
+        return eng.sched_admit(eng.sched_start(), 0,
+                               Request(prompt=prompt, max_new_tokens=t + 1))
+
+    def decoded(state, n):
+        logits, cache = state["logits"], state["cache"]
+        for i in range(n):
+            toks = torch.full((4,), 1, dtype=torch.int64, device=DEVICE)
+            toks[0] = base[i]
+            index = dead.clone()
+            index[0] = plen + i
+            logits, cache = decode_step(eng.params, cfg, cache, toks, index)
+        return logits[0], cache
+
+    def top2(logits):
+        v, i = logits[:cfg.vocab_size].to(torch.bfloat16).float().topk(2)
+        return list(zip(i.tolist(), v.tolist()))
+
+    seq, _ = decoded(admitted(), t)
+    w = min(t, SPEC_K)
+    _, cache = decoded(admitted(), t - w)
+    cands = torch.ones((4, w), dtype=torch.int64, device=DEVICE)
+    cands[0] = torch.tensor(base[t - w:t], device=DEVICE)
+    start = dead.clone()
+    start[0] = plen + t - w
+    vlogits, _ = verify_step(eng.params, cfg, cache, cands, start)
+    return {"position": t, "baseline_token": base[t], "spec_token": spec[t],
+            "decode_top2": top2(seq), "verify_top2": top2(vlogits[0, -1])}
+
+
+def spec_phase(torch, served, cfg, checked: set, card: str) -> dict:
+    """The speculative paths at batch 4 on the prior (see the module
+    docstring): each spec engine, and a non-spec engine with canonical
+    greedy selection on the same target, serve the same six requests, each
+    run with the launch counters set to 0 just before it and read just
+    after.  Fails unless every stream equals the baseline's, each path's
+    own gate holds and each spec run launched exactly the path's selected
+    hand kernels (``lut_gather`` on the prior, the verify at M=16
+    included).  Emits each path's line (with ``card``) as it ends; returns
+    ``{path: record}``."""
+    from repro_torch.serving.engine import DecodeEngine, SamplerConfig
+
+    batch = 4
+    selection = path_selection(ARCH, batch, cfg.dtype, cfg.matmul_policy,
+                               SPEC_K)
+    cases = selected_cases(ARCH, selection, cfg.dtype)
+    expect = {name for _, name, _, _ in cases}
+    if "lut_gather" not in expect or cases - checked:
+        raise AssertionError(f"spec paths select {sorted(cases)}; "
+                             f"unchecked {sorted(cases - checked)}")
+    twin = dict(served, blocks=tail_zeroed(served["blocks"]))
+    d2 = SPEC_DRAFT_LAYERS
+    pairs = {"spec_twin": ("twin", twin, first_blocks(twin, 1), 1, False),
+             "spec_draft2": ("served", served, first_blocks(served, d2), d2,
+                             False),
+             "spec_draft2_dynamic": ("served", served,
+                                     first_blocks(served, d2), d2, True)}
+    greedy = SamplerConfig(canonical_greedy=True)
+    kw = dict(batch_size=batch, max_len=256, prefill_chunk=PREFILL_CHUNK,
+              device=DEVICE, sampler=greedy)
+    baselines, out = {}, {}
+    for name, (target_name, target, dtree, depth, dynamic) in pairs.items():
+        if target_name not in baselines:
+            engine = DecodeEngine(target, cfg, **kw)
+            reqs, st, dt, counts = run_requests(torch, engine, cfg)
+            check_launches(counts, expect)
+            step_ms, step_launches = decode_step_ms(torch, engine, cfg)
+            n_tok = sum(len(r.out) for r in reqs)
+            baselines[target_name] = {
+                "streams": [r.out for r in reqs], "seconds": dt,
+                "tokens_per_s": n_tok / dt, "decode_steps": st.decode_steps,
+                "prefill_chunks": st.prefill_chunks,
+                "decode_step_ms": step_ms,
+                "launches_per_decode_step": step_launches,
+                "launches": counts}
+            del engine
+            torch.cuda.empty_cache()
+        base = baselines[target_name]
+        engine = DecodeEngine(target, cfg, draft=(dtree, cfg.with_(
+            n_layers=depth)), spec_k=SPEC_K, **kw)
+        reqs, st, dt, counts = run_requests(torch, engine, cfg, dynamic)
+        check_launches(counts, expect)
+        streams = [r.out for r in reqs]
+        if streams != base["streams"]:
+            i = next(i for i, (a, b) in enumerate(zip(base["streams"],
+                                                       streams)) if a != b)
+            raise AssertionError(
+                f"{name}: request {i}'s stream leaves the baseline's: "
+                f"{stream_mismatch(torch, target, cfg, reqs[i].prompt, base['streams'][i], streams[i])}")
+        round_ms, round_launches = spec_round_ms(torch, engine, cfg)
+        del engine
+        torch.cuda.empty_cache()
+        n_tok = sum(len(r.out) for r in reqs)
+        windows = sorted(st.spec_window_by_rid.values())
+        rec = {"target": f"{ARCH} ({cfg.n_layers} blocks"
+                         + (", wo scales of blocks 1.. zeroed)"
+                            if target_name == "twin" else ")"),
+               "draft_blocks": depth, "spec_k": SPEC_K,
+               "dynamic_spec_k": dynamic, "batch": batch,
+               "requests": len(reqs), "prompt_lengths": SPEC_LENGTHS,
+               "new_tokens": n_tok, "streams_equal": True,
+               "acceptance_rate": st.acceptance_rate,
+               "drafted_tokens": st.drafted_tokens,
+               "accepted_drafted_tokens": st.accepted_drafted_tokens,
+               "spec_rounds": st.spec_rounds,
+               "decode_step_equivalents": base["decode_steps"],
+               "prefill_chunks": st.prefill_chunks,
+               "seconds": dt, "tokens_per_s": n_tok / dt,
+               "round_ms": round_ms, "launches_per_round": round_launches,
+               "last_windows": windows, "launches": counts,
+               "baseline": {k: v for k, v in base.items()
+                            if k != "streams"}}
+        if name == "spec_twin" and not st.acceptance_rate >= 0.9:
+            raise AssertionError(f"spec_twin: acceptance "
+                                 f"{st.acceptance_rate} < 0.9")
+        if name == "spec_draft2" and not \
+                st.accepted_drafted_tokens < st.drafted_tokens:
+            raise AssertionError("spec_draft2: the mismatched draft had every "
+                                 "proposal accepted")
+        if dynamic and not (windows and windows[0] < SPEC_K):
+            raise AssertionError(f"{name}: no request's last window is under "
+                                 f"{SPEC_K}: {windows}")
+        out[name] = rec
+        emit(name, gpu=card, **rec)
+    return out
+
+
+def verify_check(torch, served, cfg) -> dict:
+    """Teacher-forced on one ragged batch-4 cache (four prompts admitted
+    as served): ``verify_step`` of ``SPEC_K`` random candidates a row
+    against as many sequential ``decode_step`` calls, logits within
+    ``VERIFY_ATOL``; then a rollback keeping ``[1, 2, 3, 4]`` must leave
+    every rejected slot's k, v and position bitwise as the snapshot holds
+    them and every kept slot as the verify wrote it."""
+    from repro_torch.models.decode import (decode_step, rollback_kv_window,
+                                           snapshot_kv_window, verify_step)
+    from repro_torch.serving.engine import DecodeEngine
+
+    eng = DecodeEngine(served, cfg, batch_size=4, max_len=256,
+                       prefill_chunk=PREFILL_CHUNK, device=DEVICE)
+    state = eng.sched_start()
+    for slot, r in enumerate(make_requests([3, 40, 17, 64], 8,
+                                           cfg.vocab_size, SEED + 11)):
+        state = eng.sched_admit(state, slot, r)
+    cache = state["cache"]
+    start = state["index"] + 1
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    cands = torch.randint(2, cfg.vocab_size, (4, SPEC_K), generator=g,
+                          device=DEVICE)
+
+    def clone(c):
+        return {k: v.clone() for k, v in c.items()}
+
+    seq, seq_logits = clone(cache), []
+    for j in range(SPEC_K):
+        logits, seq = decode_step(eng.params, cfg, seq, cands[:, j], start + j)
+        seq_logits.append(logits)
+    seq_logits = torch.stack(seq_logits, 1)
+    undo = snapshot_kv_window(cfg, cache, start, SPEC_K)
+    vlogits, vcache = verify_step(eng.params, cfg, clone(cache), cands, start)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(vlogits).all() and torch.isfinite(seq_logits).all()):
+        raise AssertionError("verify_check: non-finite logits")
+    diff = float((vlogits - seq_logits).abs().max())
+    kv_diff = max(float((vcache[n].float() - seq[n].float()).abs().max())
+                  for n in ("k", "v"))
+    if not diff <= VERIFY_ATOL:
+        raise AssertionError(f"verify_check: verify vs sequential decode "
+                             f"logits max abs diff {diff} > {VERIFY_ATOL}")
+    post = clone(vcache)
+    keep = [1, 2, 3, 4]
+    rolled = rollback_kv_window(cfg, vcache, undo, torch.tensor(keep))
+    restored = 0
+    for b in range(4):
+        for j in range(SPEC_K):
+            s = int(undo["slot"][b, j])
+            rejected = j >= keep[b]
+            want = {n: undo[n][:, b, j] if rejected else post[n][:, b, s]
+                    for n in ("k", "v")}
+            want["pos"] = (undo["pos"][b, j].expand(cfg.n_layers) if rejected
+                           else post["pos"][:, b, s])
+            for n, w in want.items():
+                if not torch.equal(rolled[n][:, b, s], w):
+                    raise AssertionError(
+                        f"verify_check: after the rollback row {b}'s "
+                        f"candidate {j} has other {n} than the "
+                        f"{'snapshot' if rejected else 'verify'}")
+            restored += rejected
+    del eng
+    return {"arch": cfg.name, "batch": 4, "spec_k": SPEC_K,
+            "start": start.tolist(), "max_abs_diff": diff,
+            "atol": VERIFY_ATOL, "bitwise_equal": diff == 0.0,
+            "kv_max_abs_diff": kv_diff,
+            "argmax_equal": bool(torch.equal(vlogits.argmax(-1),
+                                              seq_logits.argmax(-1))),
+            "rollback_keep": keep, "restored_slots": restored,
+            "rollback_bitwise": True}
 
 
 def decode_step_ms(torch, engine, cfg, steps: int = 10):
@@ -1092,6 +1422,11 @@ def main() -> int:
         paths[f"traffic_{name}"] = rec
         emit(f"traffic_{name}", gpu=card, **rec)
         torch.cuda.empty_cache()
+
+    # 1c. bitnet speculative, on the prior (before autotune)
+    paths.update(spec_phase(torch, served, cfg, checked, card))
+    emit("verify_check", **verify_check(torch, served, cfg))
+    torch.cuda.empty_cache()
 
     # 2. bitnet autotuned: measure, check whatever the measurements now
     # select, serve under auto

@@ -49,6 +49,8 @@ import math
 import os
 import tempfile
 import time
+from contextlib import contextmanager
+from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -729,6 +731,26 @@ def _select(m: int, k: int, n: int, act_dtype: str, policy: str, device: str,
                               s.name))
 
 
+#: set inside :func:`per_position_launches`
+_PER_POSITION: ContextVar[bool] = ContextVar("per_position", default=False)
+
+
+@contextmanager
+def per_position_launches():
+    """Within the block, :func:`ternary_matmul` runs an ``x`` of shape
+    ``[B, S, K]`` with ``S > 1`` as ``S`` calls, one on the ``[B, K]`` rows
+    of each position: each then selects, plans its launch and sums every
+    row as a decode step's call over the same ``B`` rows does.  On the card
+    a kernel's launch plan, and so the order of its f32 sums, depends on
+    the row count; speculative verify runs its projections under this
+    block so that they equal sequential decode's bitwise."""
+    token = _PER_POSITION.set(True)
+    try:
+        yield
+    finally:
+        _PER_POSITION.reset(token)
+
+
 def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
                    policy: str | None = None, mu: int | None = None,
                    cache: AutotuneCache | None = None) -> torch.Tensor:
@@ -737,7 +759,11 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
 
     ``x`` is float (f32/bf16/f16) or pre-quantized int8 (the caller applies
     the activation scale).  Returns ``[..., N]`` in ``x``'s dtype for float
-    inputs, f32 for int8."""
+    inputs, f32 for int8.  See :func:`per_position_launches`."""
+    if _PER_POSITION.get() and x.ndim == 3 and x.shape[1] > 1:
+        return torch.stack([ternary_matmul(x[:, j], w, scale=scale,
+                                           policy=policy, mu=mu, cache=cache)
+                            for j in range(x.shape[1])], 1)
     mu = mu or w.mu
     lead = x.shape[:-1]
     k = x.shape[-1]

@@ -8,6 +8,7 @@ Usage:
       [--prefill-chunk 32] [--admission-budget 0] [--act-dtype none|int8] \
       [--policy auto] [--autotune] [--prefix-cache] [--prefix-cache-mb 64] \
       [--scenario chat|rag|agentic|code] [--scenario-seed 0] \
+      [--draft <arch>] [--spec-k 4] [--dynamic-spec-k] \
       [--device cuda|cpu] [--seed 0]
 
 ``--arch`` takes bitnet-b1.58-2b or phi3.5-moe-42b-a6.6b (16 experts,
@@ -38,6 +39,15 @@ shared-prefix KV reuse (block = one ``--prefill-chunk``, LRU under
 first; the launcher prints the store's hit and residency line.
 ``--admission-budget`` caps prefill chunks per scheduler step (0 =
 unbounded).
+
+``--draft ARCH`` serves speculatively: a draft of that arch (its weights
+drawn from ``--seed`` + 1; ``--smoke`` shrinks it too) proposes
+``--spec-k`` - 1 tokens a round and the target verifies all ``--spec-k``
+in one forward; greedy streams are unchanged.  It needs the target's
+vocabulary (a mismatch raises ``ValueError``), and works with
+``--scenario`` too.  ``--dynamic-spec-k`` sizes each request's draft
+window from its measured acceptance.  The launcher prints the speculative
+line: rounds, accepted drafted tokens and tokens per decode step.
 """
 
 from __future__ import annotations
@@ -99,6 +109,15 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
                     "instead of the fixed request list (--smoke shrinks it)")
     ap.add_argument("--scenario-seed", type=int, default=0,
                     help="arrival-trace seed for --scenario")
+    ap.add_argument("--draft", default=None,
+                    help="draft arch for speculative decoding (greedy only; "
+                    "must share the target's vocabulary)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="candidates per speculative verify (1 free target "
+                    "token + spec-k - 1 drafted)")
+    ap.add_argument("--dynamic-spec-k", action="store_true",
+                    help="with --draft: size each request's next draft "
+                    "window from its measured acceptance, in [2, --spec-k]")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     ap.add_argument("--seed", type=int, default=0,
@@ -113,6 +132,15 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
     served = init_serving_params(cfg, gen, device)
     print(f"[serve] {cfg.name} on {device}: packed "
           f"{packed_bits_per_weight(served):.3f} b/w")
+    draft = None
+    if args.draft:
+        dcfg = (get_smoke_config(args.draft) if args.smoke
+                else get_config(args.draft))
+        dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        dserved = init_serving_params(dcfg, dgen, device)
+        print(f"[serve] draft {dcfg.name}: spec_k={args.spec_k}, packed "
+              f"{packed_bits_per_weight(dserved):.3f} b/w")
+        draft = (dserved, dcfg)
     scenario = None
     if args.scenario:
         scenario = get_scenario(args.scenario)
@@ -127,7 +155,8 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
                           max_len=args.max_len, matmul_policy=args.policy,
                           prefill_chunk=args.prefill_chunk, device=device,
                           prefix_cache=args.prefix_cache,
-                          prefix_cache_mb=args.prefix_cache_mb)
+                          prefix_cache_mb=args.prefix_cache_mb,
+                          draft=draft, spec_k=args.spec_k)
     budget = args.admission_budget if args.admission_budget > 0 else None
     if args.autotune:
         for shape, us in engine.autotune_shapes().items():
@@ -138,7 +167,8 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
         trace = generate_trace(scenario, cfg.vocab_size, args.scenario_seed)
         reset_launch_counts()
         res = LoadGenerator(engine, trace, clock="wall",
-                            admission_budget=budget).run()
+                            admission_budget=budget,
+                            dynamic_spec_k=args.dynamic_spec_k).run()
         print(f"[serve] scenario {scenario.name} (seed "
               f"{args.scenario_seed}): {len(res.records)} requests, "
               f"offered {res.offered_qps:.2f} qps, achieved "
@@ -146,6 +176,7 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
               f"{res.emitted_tokens} tokens / {res.stats.decode_steps} "
               f"decode steps; kernel launches: {_launch_report()}")
         _print_tenant_lines(scenario, res)
+        _print_spec_line(engine, res.stats, res.emitted_tokens)
         _print_prefix_line(engine)
         return res
 
@@ -155,7 +186,8 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    sched = ContinuousScheduler(engine, admission_budget=budget)
+    sched = ContinuousScheduler(engine, admission_budget=budget,
+                                dynamic_spec_k=args.dynamic_spec_k)
     for r in reqs:
         sched.submit(r)
     sched.run()
@@ -166,6 +198,7 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
     print(f"[serve] {n} tokens / {sched.stats.decode_steps} decode steps in "
           f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: "
           f"{_launch_report()}")
+    _print_spec_line(engine, sched.stats, n)
     _print_prefix_line(engine)
     for i, r in enumerate(reqs):
         print(f"  [{i}] {r.out}")
@@ -212,6 +245,15 @@ def _print_tenant_lines(scenario, res: LoadResult) -> None:
               f"{ttft['p50']:.4f}/{ttft['p95']:.4f}/{ttft['p99']:.4f}s | "
               f"tpot p50 {tpot['p50']:.4f}s | slo attainment "
               f"{t['slo_attainment']:.0%}")
+
+
+def _print_spec_line(engine: DecodeEngine, st, tokens: int) -> None:
+    if not engine.spec_k:
+        return
+    print(f"[serve] speculative: {st.spec_rounds} rounds, "
+          f"{st.accepted_drafted_tokens}/{st.drafted_tokens} drafted tokens "
+          f"accepted ({st.acceptance_rate:.0%}), "
+          f"{tokens / max(st.decode_steps, 1):.2f} tok/decode-step")
 
 
 def _print_prefix_line(engine: DecodeEngine) -> None:

@@ -1,7 +1,8 @@
 """Serving-side paths of the attention family (dense, and MoE with an
 expert FFN on every layer): ternary weight packing, the KV ring cache,
-prefill (whole and chunked), single-token decode, and the prefix-cache
-block extract and splice.
+prefill (whole and chunked), single-token decode, the prefix-cache block
+extract and splice, and speculative decoding's batched verify with its KV
+snapshot and rollback.
 
 ``quantize_for_serving`` turns trained parameters into the deployment
 artifact: every ternary projection becomes ``{"packed": uint8 base-3 (1.6
@@ -13,26 +14,29 @@ cache writer keeps one ring invariant: position ``p`` lives at slot ``p %
 CL`` (:func:`_ring_slot`); a negative position (a dead scheduler row, a
 padded chunk tail) writes nothing.
 
-Unlike the reference's functional updates, the chunk and decode steps (and
-the block splice) write their KV and positions into the cache tensors in
-place (the cache dict they return holds the same tensors): a serving step
+Unlike the reference's functional updates, the chunk, decode and verify
+steps (and the block splice and the rollback) write their KV and positions
+into the cache tensors in place (the cache dict they return holds the same
+tensors): a serving step
 then never copies the cache.
 """
 
 from __future__ import annotations
 
 import logging
+from contextlib import nullcontext
 from typing import Any
 
 import torch
 
 from repro_torch.core import encoding
 from repro_torch.core.quantization import ternarize
-from repro_torch.kernels.dispatch import GroupedTernaryWeight, TernaryWeight
+from repro_torch.kernels.dispatch import (GroupedTernaryWeight, TernaryWeight,
+                                          per_position_launches)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (append_attention, attention,
                                        mask_padded_vocab, moe_capacity,
-                                       rms_norm)
+                                       ring_writes, rms_norm)
 from repro_torch.models.model import (Params, block_ffn, check_supported,
                                       embed_tokens, init_layer, init_top,
                                       layer_blocks, lm_head_w, stack_layers)
@@ -271,11 +275,7 @@ def _scatter_rows(cache: dict, slot: torch.Tensor, positions: torch.Tensor,
                   k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
     """Write ``[L, B, S, ...]`` fresh KV and the positions at ``slot``
     ``[B, S]`` in place; entries whose slot is out of range drop."""
-    CL = cache["pos"].shape[-1]
-    B, S = slot.shape
-    rows = torch.arange(B, device=slot.device)[:, None].expand(B, S)
-    keep = (slot >= 0) & (slot < CL)
-    r, s = rows[keep], slot[keep].long()
+    keep, r, s = ring_writes(slot, cache["pos"].shape[-1])
     cache["k"][:, r, s] = k_new[:, keep].to(cache["k"].dtype)
     cache["v"][:, r, s] = v_new[:, keep].to(cache["v"].dtype)
     cache["pos"][:, r, s] = positions.to(torch.int32)[keep]
@@ -363,12 +363,25 @@ def supports_chunked_prefill(p: Params, cfg: ModelConfig) -> bool:
 
 
 def _chunk_forward(p: Params, cfg: ModelConfig, cache: dict,
-                   tokens: torch.Tensor, positions: torch.Tensor):
+                   tokens: torch.Tensor, positions: torch.Tensor,
+                   exact: bool = False):
     """Run a ``[B, C]`` chunk at per-row absolute ``positions`` through the
     stack, attending the already-written ring (read-only) plus the chunk
     itself, then write the chunk's KV at ``p % CL`` (positions of -1 neither
     write nor match a query).  Returns ``(cache, h [B, C, D])``, ``h``
-    final-normed."""
+    final-normed.
+
+    ``exact`` (dense caches only) switches to the scatter-first form: each
+    layer writes the chunk's KV into its own cache slice before attending,
+    masked strictly below each query, and the chunk merges self-only, so
+    every chunk position attends what a sequential :func:`decode_step` at
+    that position would, in the same order (see
+    :func:`repro_torch.models.layers.append_attention`).  The projections
+    then launch one position at a time
+    (:func:`~repro_torch.kernels.dispatch.per_position_launches`) and the
+    attention takes each query as a batch row of its own, so every kernel
+    and matmul runs at a decode step's row count: on the card their sums'
+    order depends on it."""
     if not supports_chunked_prefill(p, cfg):
         raise NotImplementedError(
             f"chunked prefill not supported for {cfg.name} "
@@ -379,22 +392,41 @@ def _chunk_forward(p: Params, cfg: ModelConfig, cache: dict,
         raise ValueError(
             f"chunk size {C} exceeds ring length {CL}: a single chunk would "
             f"collide with itself in the ring; use chunks <= the window")
+    if exact and cfg.window:
+        raise ValueError(
+            "exact (scatter-first) chunk forward requires a dense cache: a "
+            "wrapped ring would pre-evict in-window keys that earlier chunk "
+            "positions still attend")
     positions = positions.to(torch.int32)
     slot = _ring_slot(cfg, CL, positions)
     h = embed_tokens(p, cfg, tokens)
     old_pos = cache["pos"][0].clone()  # [B, CL] pre-chunk positions
+    scatter = None
+    if exact:
+        # queries see their chunk-mates at their slots: the positions go in
+        # up front, the KV layer by layer
+        scatter = ring_writes(slot, CL)
+        keep, r, s = scatter
+        old_pos[r, s] = positions[keep]
     ks, vs = [], []
-    for i, blk in enumerate(layer_blocks(p)):
-        hn = rms_norm(blk["ln1"], h, offset=cfg.rmsnorm_offset)
-        a, (k, v) = append_attention(blk["attn"], hn, cfg, positions=positions,
-                                     cache_k=cache["k"][i], cache_v=cache["v"][i],
-                                     k_positions=old_pos, window=cfg.window)
-        h = h + a
-        h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
-                                        offset=cfg.rmsnorm_offset), cfg)[0]
-        ks.append(k)
-        vs.append(v)
-    cache = _scatter_rows(cache, slot, positions, torch.stack(ks), torch.stack(vs))
+    with per_position_launches() if exact else nullcontext():
+        for i, blk in enumerate(layer_blocks(p)):
+            hn = rms_norm(blk["ln1"], h, offset=cfg.rmsnorm_offset)
+            a, (k, v) = append_attention(
+                blk["attn"], hn, cfg, positions=positions,
+                cache_k=cache["k"][i], cache_v=cache["v"][i],
+                k_positions=old_pos, window=cfg.window, scatter=scatter)
+            h = h + a
+            h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
+                                            offset=cfg.rmsnorm_offset), cfg)[0]
+            if not exact:   # exact: the layer wrote its own slice already
+                ks.append(k)
+                vs.append(v)
+    if exact:
+        cache["pos"][:, r, s] = positions[keep]
+    else:
+        cache = _scatter_rows(cache, slot, positions, torch.stack(ks),
+                              torch.stack(vs))
     return cache, rms_norm(p["final_norm"], h, offset=cfg.rmsnorm_offset)
 
 
@@ -410,6 +442,84 @@ def prefill_chunk(p: Params, cfg: ModelConfig, cache: dict,
     take = C - 1 if take is None else take
     cache, h = _chunk_forward(p, cfg, cache, tokens, positions)
     return cache, _final_logits(p, cfg, h[:, take])
+
+
+def _window_positions(start: torch.Tensor, K: int) -> torch.Tensor:
+    """Positions ``start[b] .. start[b]+K-1`` per row, the whole row -1
+    where ``start[b] < 0`` (-1 + j is a real position for j >= 1, so a
+    per-position mask would let a dead row write)."""
+    start = start.to(torch.int32)
+    j = torch.arange(K, dtype=torch.int32, device=start.device)
+    return torch.where(start[:, None] >= 0, start[:, None] + j, -1)
+
+
+def verify_step(p: Params, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, start: torch.Tensor):
+    """Score K candidate tokens per row in one batched forward: the verify
+    half of draft-and-verify speculative decoding.
+
+    tokens: [B, K] candidates per row; start: int32 [B], the position of
+    each row's first candidate (-1: a dead row, which writes nothing).
+    Row ``b``'s candidates sit at ``start[b] .. start[b]+K-1`` and their KV
+    lands at the canonical ring slots, as K :func:`decode_step` calls would
+    write it.  Returns ``(logits [B, K, V], cache)``: ``logits[b, j]`` is
+    the next-token distribution after candidates ``0..j``.
+
+    On dense caches the forward runs scatter-first (``exact``): per row
+    and position it attends and reduces as sequential decode does, every
+    kernel at a decode step's row count, so the logits and KV equal K
+    decode steps bitwise (on the CPU and, at bitnet's full width, on the
+    H100: ``launch/verify_drift.py``).  Windowed caches take the read-only
+    chunk form (positionally exact, softmax partitioned otherwise)."""
+    K = tokens.shape[1]
+    positions = _window_positions(start, K)
+    cache, h = _chunk_forward(p, cfg, cache, tokens, positions,
+                              exact=not cfg.window)
+    return _final_logits(p, cfg, h), cache
+
+
+def snapshot_kv_window(cfg: ModelConfig, cache: dict, start: torch.Tensor,
+                       K: int) -> dict:
+    """The undo slab for :func:`rollback_kv_window`, taken before a K-token
+    speculative write: per row, the KV and positions at the ring slots of
+    positions ``start[b] .. start[b]+K-1`` (slot CL for a dead row or past
+    a dense cache's end, read clamped and never restored).  K <= CL
+    consecutive positions take K distinct slots, so the pair is exact also
+    where the write wraps the ring.  The slab owns its storage (advanced
+    indexing copies): the verify writes into the very slots it holds.
+    Returns ``{"slot": [B, K], "pos": [B, K], "k"/"v": [L, B, K, Hkv,
+    hd]}``."""
+    CL = cache["pos"].shape[-1]
+    slot = _ring_slot(cfg, CL, _window_positions(start, K))
+    rows = torch.arange(slot.shape[0], device=slot.device)[:, None]
+    read = slot.clamp_max(CL - 1).long()
+    return {"slot": slot, "pos": cache["pos"][0][rows, read],
+            "k": cache["k"][:, rows, read], "v": cache["v"][:, rows, read]}
+
+
+def rollback_kv_window(cfg: ModelConfig, cache: dict, undo: dict,
+                       keep: torch.Tensor) -> dict:
+    """Rewind a K-token speculative write in place: entries ``j >=
+    keep[b]`` of each row get their KV and positions back from ``undo``
+    (:func:`snapshot_kv_window`), -1 and evicted in-window keys included;
+    the accepted prefix ``j < keep[b]`` stays.  The cache is then what
+    ``keep[b]`` sequential :func:`decode_step` writes would have left.
+
+    ``keep`` and ``undo["slot"]`` may lie on the host (the engine reads
+    them back with the round's results): the entries to restore are then
+    found there, without a device read."""
+    slot = undo["slot"]
+    CL = cache["pos"].shape[-1]
+    j = torch.arange(slot.shape[1], device=slot.device)[None, :]
+    restore = (j >= keep.to(slot.device)[:, None]) & (slot < CL)
+    r, jj = restore.nonzero(as_tuple=True)
+    s = slot[r, jj].long()
+    dev = cache["pos"].device
+    r, jj, s = r.to(dev), jj.to(dev), s.to(dev)
+    for name in ("k", "v"):
+        cache[name][:, r, s] = undo[name][:, r, jj]
+    cache["pos"][:, r, s] = undo["pos"][r, jj]
+    return cache
 
 
 def _block_slots(cfg: ModelConfig, cache: dict, start: int, length: int):

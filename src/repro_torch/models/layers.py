@@ -192,10 +192,21 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
+def ring_writes(slot: torch.Tensor, CL: int):
+    """The in-range entries of ``slot`` ``[B, S]`` (ring slots; out of
+    range drops): ``(keep [B, S], rows [n], slots [n])``, the index pair a
+    cache write takes.  Boolean indexing reads ``keep`` back to the host
+    once."""
+    B, S = slot.shape
+    keep = (slot >= 0) & (slot < CL)
+    rows = torch.arange(B, device=slot.device)[:, None].expand(B, S)
+    return keep, rows[keep], slot[keep].long()
+
+
 def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, k_positions: torch.Tensor,
-                     window: int = 0):
+                     window: int = 0, scatter=None):
     """Attention over a read-only KV cache plus the tokens being appended
     (decode: one token; chunked prefill: one chunk), merged as one extra
     online-softmax chunk.  Causality inside the chunk falls out of the
@@ -204,8 +215,42 @@ def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     x: [B, Sq, D]; positions: [B, Sq] (-1 rows produce garbage the caller
     discards); cache k/v: [B, CL, Hkv, hd]; k_positions: [B, CL].
-    Returns (out [B, Sq, D], (k, v) [B, Sq, Hkv, hd])."""
+    Returns (out [B, Sq, D], (k, v) [B, Sq, Hkv, hd]).
+
+    ``scatter`` (the chunk's :func:`ring_writes`) switches to the
+    scatter-first exact form of speculative verify: the chunk's fresh k/v
+    are written into ``cache_k``/``cache_v`` in place before attending,
+    the cache is masked strictly below each query (``kp < qp``; the caller
+    passes ``k_positions`` already holding the chunk's positions) and the
+    chunk merges self-only (``kp == qp``).  Each query attends as a batch
+    row of its own (the row's cache repeated per query), so every product
+    of the attention has a decode step's shape: per query the attended set,
+    the reduction order and the row count are then those of sequential
+    single-token decode.  Dense caches only: on a wrapped ring the write
+    would evict keys that earlier chunk positions still attend.  Returns
+    (out, (cache_k, cache_v))."""
     q, k, v = _qkv(p, x, cfg, positions)
+    if scatter is not None:
+        if window:
+            raise ValueError("scatter-first exact attention requires a "
+                             "dense (window=0) cache")
+        keep, r, s = scatter
+        cache_k[r, s] = k[keep].to(cache_k.dtype)
+        cache_v[r, s] = v[keep].to(cache_v.dtype)
+        B, Sq = positions.shape
+
+        def rows(t):        # [B, Sq, ...] → [B·Sq, 1, ...]
+            return t.reshape(B * Sq, 1, *t.shape[2:])
+
+        def per_query(t):   # [B, ...] → [B·Sq, ...], row b·Sq + j
+            return t.repeat_interleave(Sq, 0)
+
+        o = _sdpa(rows(q), per_query(cache_k.to(q.dtype)),
+                  per_query(cache_v.to(q.dtype)), cfg, q_pos=rows(positions),
+                  k_pos=per_query(k_positions), kind="causal_strict",
+                  extra_kv=(rows(k), rows(v), rows(positions)),
+                  extra_kind="self")
+        return linear(p["wo"], o.reshape(B, Sq, -1), cfg), (cache_k, cache_v)
     o = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), cfg,
               q_pos=positions, k_pos=k_positions, window=window,
               extra_kv=(k, v, positions))

@@ -21,8 +21,16 @@ of recomputed, each freshly computed full block is published, and
 :meth:`DecodeEngine.prefix_match_len` lets the scheduler admit cache-hot
 requests first.
 
-Speculative decoding, mesh sharding and the generational ``run()`` path are
-not ported yet; the constructor rejects their arguments.
+With ``draft=(params, cfg)`` the engine decodes speculatively: each
+scheduler step is one round in which the draft proposes ``spec_k - 1``
+greedy continuations of the target's free next token, the target scores
+all ``spec_k`` candidates in one batched :func:`~repro_torch.models.decode.
+verify_step`, the accepted prefix is kept and the rest is rolled back on
+both KV rings (:func:`~repro_torch.models.decode.rollback_kv_window`).
+Every emitted token is the target's own canonical greedy choice.
+
+Mesh sharding and the generational ``run()`` path are not ported yet; the
+constructor rejects ``mesh`` and ``run()`` raises.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        init_cache,
                                        layer_grouped_matmul_problems,
                                        layer_matmul_problems,
-                                       prefill_chunks_of, splice_kv_blocks,
-                                       supports_chunked_prefill)
+                                       prefill_chunks_of, rollback_kv_window,
+                                       snapshot_kv_window, splice_kv_blocks,
+                                       supports_chunked_prefill, verify_step)
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
 from repro_torch.serving.prefix_cache import PrefixBlockStore
 
@@ -127,7 +136,7 @@ class DecodeEngine:
                  matmul_policy: str | None = None, prefill_chunk: int = 32,
                  device: str | torch.device | None = None, mesh=None,
                  prefix_cache=False, prefix_cache_mb: float = 64.0,
-                 draft=None):
+                 draft=None, spec_k: int = 4):
         """Serve ``params`` (the ``quantize_for_serving`` tree) on ``device``
         (default ``cuda``; raises when there is none).
 
@@ -145,17 +154,35 @@ class DecodeEngine:
         The slabs are device memory beside the KV cache, counted against
         the budget.
 
-        ``mesh`` and ``draft`` belong to features not ported yet and raise
-        when set."""
-        for name, value in (("mesh", mesh), ("draft", draft)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"DecodeEngine({name}=...) is not ported yet: the port "
-                    f"serves single-device continuous batching without "
-                    f"mesh sharding or speculative decoding")
+        ``draft = (draft_params, draft_cfg)`` (a ``quantize_for_serving``
+        tree and its config) turns on draft-and-verify speculative decoding
+        with ``spec_k`` candidates a round (the target's free next token
+        plus ``spec_k - 1`` drafted; see the module docstring).  Greedy
+        only; draft and target must share the vocabulary and both take the
+        chunked path; admission prefills the draft's own ring beside the
+        target's.  ``matmul_policy`` governs the draft too.
+
+        ``mesh`` (sharded serving) is not ported yet and raises when set,
+        with or without a draft."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "DecodeEngine(mesh=...) is not ported yet: the port serves "
+                "on a single device, without mesh sharding")
         self.device = resolve_device(device)
         if matmul_policy is not None:
             cfg = cfg.with_(matmul_policy=matmul_policy)
+        #: speculative decoding: 0 = off, else candidates a verify scores
+        self.spec_k = 0
+        self.draft_cfg: ModelConfig | None = None
+        self.draft_params = None
+        if draft is not None:
+            draft_params, draft_cfg = draft
+            if matmul_policy is not None:
+                draft_cfg = draft_cfg.with_(matmul_policy=matmul_policy)
+            self._check_draft(params, cfg, draft_params, draft_cfg, max_len,
+                              sampler or SamplerConfig(), spec_k)
+            self.spec_k = spec_k
+            self.draft_cfg = draft_cfg
         if not supports_chunked_prefill(params, cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs whole-prompt admission, which is not "
@@ -171,8 +198,45 @@ class DecodeEngine:
                                                     prefix_cache_mb)
         params = _to_device(params, self.device)
         self.params = bind_serving_weights(params, cfg)
+        if self.spec_k:
+            self.draft_params = bind_serving_weights(
+                _to_device(draft[0], self.device), self.draft_cfg)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.sampler.seed)
+
+    @staticmethod
+    def _check_draft(params, cfg: ModelConfig, draft_params,
+                     draft_cfg: ModelConfig, max_len: int,
+                     sampler: SamplerConfig, spec_k: int) -> None:
+        """The reference's refusals of a draft, with its exception types."""
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft/target tokenizer mismatch: draft {draft_cfg.name} has "
+                f"vocab_size {draft_cfg.vocab_size} but target {cfg.name} has "
+                f"{cfg.vocab_size}; speculative decoding compares token ids "
+                f"directly, so draft and target must share one vocabulary")
+        if sampler.temperature > 0.0:
+            raise ValueError(
+                f"speculative decoding preserves greedy streams only "
+                f"(temperature=0); got temperature={sampler.temperature}")
+        if spec_k < 2:
+            raise ValueError(
+                f"spec_k must be >= 2 (the target's free next token plus at "
+                f"least one drafted candidate); got {spec_k}")
+        for side, c in (("target", cfg), ("draft", draft_cfg)):
+            if spec_k > cache_len(c, max_len):
+                raise ValueError(
+                    f"spec_k {spec_k} exceeds the {side} ring length "
+                    f"{cache_len(c, max_len)}: one verify window would "
+                    f"collide with itself in the KV ring")
+        for side, pp, c in (("target", params, cfg),
+                            ("draft", draft_params, draft_cfg)):
+            if not supports_chunked_prefill(pp, c):
+                raise ValueError(
+                    f"speculative decoding needs the batched verify forward "
+                    f"(the chunked-prefill path), which the {side} "
+                    f"architecture {c.name} does not support "
+                    f"(block_pattern={c.block_pattern})")
 
     def _make_prefix_store(self, prefix_cache, prefix_cache_mb: float):
         """Resolve the ``prefix_cache`` argument into a
@@ -209,48 +273,63 @@ class DecodeEngine:
     # kernel autotuning over the engine's shapes
     # ------------------------------------------------------------------
 
-    def _problems(self) -> list[tuple[tuple[int, ...], int | None]]:
-        """``(shape, e)`` of every ternary-matmul problem this engine's
-        serving path dispatches: dense ``(M, K, N)`` with ``e`` None, grouped
-        ``(E, C, K, N)`` with ``e = E``, at decode (``M = B``) and at the
-        admission chunk (``M = chunk``; requests are prefilled one at a
-        time, chunk by chunk)."""
-        probs = set()
-        for bs, sl in ((self.B, 1), (1, self.prefill_chunk)):
-            probs |= {((m, k, n), None)
-                      for _, m, k, n in serving_matmul_problems(self.cfg, bs,
-                                                                sl)}
-            probs |= {((e, c, k, n), e)
-                      for _, e, c, k, n in layer_grouped_matmul_problems(
-                          self.cfg, bs, sl)}
-        return sorted(probs, key=lambda p: p[0])
+    def _shape_sources(self) -> list[tuple[ModelConfig, int, int]]:
+        """``(cfg, batch_size, seq_len)`` of every forward the serving path
+        runs: the target's decode (``B`` rows) and admission chunk (one
+        request at a time, chunk by chunk), and with a draft the target's
+        verify (``B · spec_k`` rows), the draft's decode and its admission
+        chunk."""
+        sources = [(self.cfg, self.B, 1), (self.cfg, 1, self.prefill_chunk)]
+        if self.spec_k:
+            sources += [(self.cfg, self.B, self.spec_k),
+                        (self.draft_cfg, self.B, 1),
+                        (self.draft_cfg, 1, self.prefill_chunk)]
+        return sources
+
+    @staticmethod
+    def _problems(cfg: ModelConfig, bs: int, sl: int
+                  ) -> set[tuple[tuple[int, ...], int | None]]:
+        """``(shape, e)`` of every ternary-matmul problem one forward of
+        ``cfg`` over ``bs`` rows of ``sl`` tokens dispatches: dense ``(M, K,
+        N)`` with ``e`` None, grouped ``(E, C, K, N)`` with ``e = E``."""
+        return ({((m, k, n), None)
+                 for _, m, k, n in serving_matmul_problems(cfg, bs, sl)}
+                | {((e, c, k, n), e)
+                   for _, e, c, k, n in layer_grouped_matmul_problems(
+                       cfg, bs, sl)})
 
     def matmul_shape_universe(self) -> list[tuple[int, ...]]:
         """Every ternary-matmul problem this engine's serving path
-        dispatches: dense ``(M, K, N)`` triples at decode (``M = B``) and the
-        admission chunk (``M = chunk``), and for MoE configs the grouped
-        ``(E, C, K, N)`` quads of the expert stacks at the matching
-        per-expert capacities.  The speculative shapes (verify, draft
-        decode, draft chunk) come with speculative decoding."""
-        return [shape for shape, _ in self._problems()]
+        dispatches (:meth:`_shape_sources`): dense ``(M, K, N)`` triples
+        and, for MoE configs, the grouped ``(E, C, K, N)`` quads of the
+        expert stacks at the matching per-expert capacities."""
+        return sorted({shape for src in self._shape_sources()
+                       for shape, _ in self._problems(*src)})
 
     def autotune_shapes(self, **autotune_kw) -> dict:
         """Measure every eligible kernel at each of this engine's shapes,
         dense and grouped (:func:`repro_torch.kernels.dispatch.autotune`, on
         the engine's device), and record the times in the process's
         autotune cache, so ``policy="auto"`` serving dispatches on
-        measurements instead of the prior; one cache write at the end.  The
-        act dtype is the one dispatch keys on: ``int8`` under
-        ``act_dtype="int8"``, else the config's dtype.  Returns ``{shape:
-        {kernel: µs}}`` with the shapes of :meth:`matmul_shape_universe`."""
+        measurements instead of the prior; one cache write at the end.
+        Each source is timed at the act dtype its config dispatches on
+        (``int8`` under ``act_dtype="int8"``, else the config's dtype), so
+        a draft's problems are timed as the draft runs them.  Returns
+        ``{shape: {kernel: µs}}`` with the shapes of
+        :meth:`matmul_shape_universe`."""
         cache = get_autotune_cache()
-        act = "int8" if self.cfg.act_dtype == "int8" else self.cfg.dtype
-        results = {}
-        for shape, e in self._problems():
-            m, k, n = shape[-3:]
-            results[shape] = autotune(m, k, n, act, mu=self.cfg.mu,
-                                      cache=cache, save=False, e=e,
-                                      device=self.device, **autotune_kw)
+        results, seen = {}, set()
+        for c, bs, sl in self._shape_sources():
+            act = "int8" if c.act_dtype == "int8" else c.dtype
+            for shape, e in sorted(self._problems(c, bs, sl),
+                                   key=lambda p: p[0]):
+                if (shape, act) in seen:
+                    continue
+                seen.add((shape, act))
+                m, k, n = shape[-3:]
+                results[shape] = autotune(m, k, n, act, mu=c.mu, cache=cache,
+                                          save=False, e=e, device=self.device,
+                                          **autotune_kw)
         cache.save()
         return results
 
@@ -265,9 +344,11 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def sched_start(self) -> dict:
-        """Fresh scheduler state: empty cache, all slots dead."""
+        """Fresh scheduler state: empty cache, all slots dead.  With a draft
+        its KV ring rides along (``"dcache"``): admission and every spec
+        round write both rings in lockstep, so one ``index`` serves both."""
         B, V, dev = self.B, self.cfg.padded_vocab, self.device
-        return {
+        state = {
             "cache": init_cache(self.cfg, B, self.max_len, device=dev),
             "logits": torch.zeros((B, V), dtype=torch.float32, device=dev),
             "live": torch.zeros((B,), dtype=torch.bool, device=dev),
@@ -275,6 +356,10 @@ class DecodeEngine:
             "remaining": torch.zeros((B,), dtype=torch.int32, device=dev),
             "stop": torch.full((B,), -1, dtype=torch.int32, device=dev),
         }
+        if self.spec_k:
+            state["dcache"] = init_cache(self.draft_cfg, B, self.max_len,
+                                         device=dev)
+        return state
 
     def _validate_request(self, request: Request) -> int:
         plen = len(request.prompt)
@@ -322,7 +407,15 @@ class DecodeEngine:
                 splice_kv_blocks(self.cfg, cache1, store.get(hashes[i]), i * C)
             store.stats.reused_tokens += hits * C
         pending = {"request": request, "slot": slot, "chunks": chunks,
-                   "i": hits, "hashes": hashes, "cache": cache1}
+                   "i": hits, "hashes": hashes, "cache": cache1,
+                   "logits1": None,
+                   # the draft has no prefix store: its cursor starts at 0
+                   # and it prefills every chunk, catching up in the calls
+                   # the target's hits skip
+                   "di": 0 if self.spec_k else len(chunks),
+                   "dcache": (init_cache(self.draft_cfg, 1, self.max_len,
+                                         device=dev)
+                              if self.spec_k else None)}
         return state, pending
 
     def _publishable_blocks(self, plen: int) -> int:
@@ -344,21 +437,31 @@ class DecodeEngine:
         With a prefix store, each freshly computed full block within reuse
         depth is extracted from the just-written ring slots and published,
         so the next request sharing the prefix splices instead of
-        recomputing."""
+        recomputing.  With a draft, each call also advances the draft's
+        prefill by one chunk (same tokens and positions, its own private
+        cache), so the admission takes ``len(chunks)`` calls either way and
+        ends with both rings armed."""
+        n = len(pending["chunks"])
+        if pending["di"] < n:
+            toks, pos, take = pending["chunks"][pending["di"]]
+            pending["dcache"], _ = model_prefill_chunk(
+                self.draft_params, self.draft_cfg, pending["dcache"], toks,
+                pos, take)
+            pending["di"] += 1
         i = pending["i"]
-        toks, pos, take = pending["chunks"][i]
-        pending["cache"], logits1 = model_prefill_chunk(
-            self.params, self.cfg, pending["cache"], toks, pos, take)
-        hashes = pending["hashes"]
-        if i < len(hashes) and hashes[i] not in self.prefix_store:
-            C = self.prefill_chunk
-            self.prefix_store.put(hashes[i], extract_kv_blocks(
-                self.cfg, pending["cache"], i * C, C))
-        pending["i"] += 1
-        if pending["i"] < len(pending["chunks"]):
+        if i < n:
+            toks, pos, take = pending["chunks"][i]
+            pending["cache"], pending["logits1"] = model_prefill_chunk(
+                self.params, self.cfg, pending["cache"], toks, pos, take)
+            hashes = pending["hashes"]
+            if i < len(hashes) and hashes[i] not in self.prefix_store:
+                C = self.prefill_chunk
+                self.prefix_store.put(hashes[i], extract_kv_blocks(
+                    self.cfg, pending["cache"], i * C, C))
+            pending["i"] += 1
+        if pending["i"] < n or pending["di"] < n:
             return state, pending
-        return self._commit(state, pending["slot"], pending["cache"],
-                            logits1[0], pending["request"]), None
+        return self._commit(state, pending), None
 
     def prefix_match_len(self, request: Request) -> int:
         """Cached-prefix depth for ``request`` in tokens: how much prefill
@@ -376,13 +479,15 @@ class DecodeEngine:
                                                 n_blocks=n_reusable)
         return self.prefix_store.match(hashes, peek=True) * self.prefill_chunk
 
-    def _commit(self, state: dict, slot: int, cache1: dict, logits1,
-                request: Request) -> dict:
-        """Splice a prefilled single-row cache into batch row ``slot`` and arm
-        the slot (in place)."""
+    def _commit(self, state: dict, pending: dict) -> dict:
+        """Splice a prefilled single-row cache (and the draft's, with a
+        draft) into batch row ``slot`` and arm the slot (in place)."""
+        slot, request = pending["slot"], pending["request"]
         for name in ("k", "v", "pos"):
-            state["cache"][name][:, slot] = cache1[name][:, 0]
-        state["logits"][slot] = logits1
+            state["cache"][name][:, slot] = pending["cache"][name][:, 0]
+            if self.spec_k:
+                state["dcache"][name][:, slot] = pending["dcache"][name][:, 0]
+        state["logits"][slot] = pending["logits1"][0]
         state["live"][slot] = True
         state["index"][slot] = len(request.prompt) - 1
         state["remaining"][slot] = request.max_new_tokens
@@ -412,6 +517,86 @@ class DecodeEngine:
         state = dict(state, cache=cache, logits=logits, index=index,
                      remaining=remaining, live=alive)
         return state, toks.cpu().numpy(), alive.cpu().numpy()
+
+    #: sched_spec_step takes per-slot draft windows (the scheduler's
+    #: protocol attribute for dynamic ``spec_k``)
+    spec_window_aware = True
+
+    def sched_spec_step(self, state: dict, window=None):
+        """One speculative round.  Returns ``(state, cands [B, K], n_acc
+        [B], n_emit [B], alive [B])`` as numpy: slot ``b`` emits
+        ``cands[b, :n_emit[b]]``, each token the target's own canonical
+        greedy choice; ``n_acc[b] - 1`` drafted candidates were accepted.
+        ``window`` (``B`` ints in ``[2, spec_k]``; None: ``spec_k``
+        everywhere) caps each slot's accepted prefix; the draft and the
+        verify still run all ``spec_k`` positions, and the rollback rewinds
+        whatever was not accepted.
+
+        The round: the free token ``c0`` from the slot's logits; ``spec_k``
+        draft decode steps, which propose ``c1..c_{K-1}`` and write all K
+        candidates into the draft ring; one target :func:`verify_step`;
+        candidate ``j >= 1`` accepted while it equals the target's greedy
+        choice after ``0..j-1`` and lies inside the window; stop and budget
+        masking over the accepted prefix; both rings rolled back past it;
+        the next logits taken from the last accepted position.  Dead rows
+        verify at -1: nothing is written and ``n_acc = n_emit = 0``.  The
+        round reads its results back to the host once, and rolls back from
+        that copy."""
+        if not self.spec_k:
+            raise RuntimeError("sched_spec_step requires draft= at engine "
+                               "construction")
+        B, K, dev = self.B, self.spec_k, self.device
+        if window is None:
+            window = [K] * B
+        w = torch.as_tensor(np.asarray(window, np.int32))
+        if w.shape != (B,):
+            raise ValueError(f"window must have shape ({B},), got "
+                             f"{tuple(w.shape)}")
+        w = w.to(dev)
+        live, index = state["live"], state["index"]
+        start = torch.where(live, index + 1, -1)
+        dcache = state["dcache"]
+        dundo = snapshot_kv_window(self.draft_cfg, dcache, start, K)
+        tok = torch.where(live, greedy_tokens(state["logits"]), PAD_TOKEN)
+        cands = []
+        for j in range(K):
+            cands.append(tok)
+            dlogits, dcache = decode_step(
+                self.draft_params, self.draft_cfg, dcache, tok,
+                torch.where(live, index + 1 + j, -1))
+            tok = torch.where(live, greedy_tokens(dlogits), PAD_TOKEN)
+        cands = torch.stack(cands, 1)                          # [B, K]
+        undo = snapshot_kv_window(self.cfg, state["cache"], start, K)
+        vlogits, cache = verify_step(self.params, self.cfg, state["cache"],
+                                     cands, start)
+        pred = greedy_tokens(vlogits)                          # [B, K]
+        j = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+        match = ((cands[:, 1:] == pred[:, :-1])
+                 & (j[:, 1:] < w[:, None])).to(torch.int32)
+        n_acc = torch.where(live, 1 + torch.cumprod(match, 1).sum(1), 0)
+        is_stop = (j < n_acc[:, None]) & (cands == state["stop"][:, None])
+        stop_at = torch.where(is_stop, j, K).amin(1)
+        n_emit = torch.minimum(torch.minimum(n_acc, stop_at + 1),
+                               state["remaining"])
+        remaining = state["remaining"] - n_emit
+        alive = live & ~(stop_at < n_emit) & (remaining > 0)
+        rows = torch.arange(B, device=dev)
+        nlog = vlogits[rows, (n_acc - 1).clamp_min(0)]
+        logits = torch.where(live[:, None], nlog, state["logits"])
+        # the one read-back of the round; the rollbacks index from it
+        host = torch.cat([cands.to(torch.int32), n_acc[:, None].int(),
+                          n_emit[:, None].int(), alive[:, None].int(),
+                          undo["slot"], dundo["slot"]], 1).cpu()
+        keep = host[:, K]
+        undo["slot"], dundo["slot"] = host[:, K + 3:2 * K + 3], host[:, -K:]
+        cache = rollback_kv_window(self.cfg, cache, undo, keep)
+        dcache = rollback_kv_window(self.draft_cfg, dcache, dundo, keep)
+        state = dict(state, cache=cache, dcache=dcache, logits=logits,
+                     index=index + n_acc.to(torch.int32),
+                     remaining=remaining.to(torch.int32), live=alive)
+        h = host.numpy()
+        return (state, h[:, :K], h[:, K], h[:, K + 1],
+                h[:, K + 2].astype(bool))
 
     def serve(self, requests: list[Request], *,
               on_token: Callable[[Request, int], None] | None = None,

@@ -219,16 +219,17 @@ class LoadGenerator:
 
     ``backend`` is any :class:`~repro_torch.serving.scheduler.ScheduleBackend`
     (a real :class:`~repro_torch.serving.engine.DecodeEngine` or a test
-    fake).  ``admission_budget`` passes through to the scheduler, which
-    orders admission by cache affinity on a backend with a prefix store.
-    See the module docstring for the two clocks."""
+    fake).  ``admission_budget`` and ``dynamic_spec_k`` pass through to
+    the scheduler, which orders admission by cache affinity on a backend
+    with a prefix store.  See the module docstring for the two clocks."""
 
     def __init__(self, backend: Any, trace: list[ArrivalEvent], *,
                  clock: str = "virtual",
                  decode_step_cost_s: float = 0.01,
                  prefill_chunk_cost_s: float = 0.02,
                  stop_token: int | None = None,
-                 admission_budget: int | None = None):
+                 admission_budget: int | None = None,
+                 dynamic_spec_k: bool = False):
         if clock not in ("virtual", "wall"):
             raise ValueError(f"clock must be 'virtual' or 'wall', got "
                              f"{clock!r}")
@@ -246,7 +247,7 @@ class LoadGenerator:
         self.sched = ContinuousScheduler(
             backend, on_token=self._on_token,
             admission_budget=admission_budget,
-            clock=self._read_clock)
+            clock=self._read_clock, dynamic_spec_k=dynamic_spec_k)
         self.records: dict[int, RequestRecord] = {}
 
     def _read_clock(self) -> float:

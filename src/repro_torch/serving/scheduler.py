@@ -47,6 +47,9 @@ AFFINITY_WINDOW = 8
 #: the starvation bound: a queue head jumped this many times on affinity is
 #: admitted next, whatever the matches behind it
 MAX_AFFINITY_SKIPS = 4
+#: dynamic ``spec_k``: weight of the newest round in a request's EWMA of
+#: its accepted-draft fraction
+SPEC_ACC_EWMA = 0.5
 
 
 @runtime_checkable
@@ -71,6 +74,17 @@ class ScheduleBackend(Protocol):
     prefill a prefix cache would skip right now (a read-only probe) — which
     lets the scheduler admit cache-hot requests first (see
     :meth:`ContinuousScheduler._pop_next`).
+
+    A backend may also speak the **speculative accept/rollback step**: an
+    int attribute ``spec_k >= 2`` and ``sched_spec_step(state, window) ->
+    (state, tokens, n_acc, n_emit, alive)``, where ``tokens`` is ``[B,
+    spec_k]`` candidates, slot ``b`` emits exactly ``tokens[b,
+    :n_emit[b]]`` (the backend has already rolled back every rejected
+    candidate), ``n_acc[b] - 1`` counts its accepted drafted tokens, and
+    ``window`` (``B`` ints in ``[2, spec_k]``, or None for ``spec_k``
+    everywhere) caps each slot's accepted prefix.  The scheduler then
+    drives ``sched_spec_step`` instead of ``sched_step`` and fans each
+    slot's ragged window out to the per-token callbacks.
     """
 
     batch_size: int
@@ -108,12 +122,34 @@ class SchedulerStats:
     #: admissions that jumped ahead of an older queued request on cache
     #: affinity (0 under pure FIFO)
     affinity_reorders: int = 0
+    #: speculative rounds run (0 on non-speculative backends)
+    spec_rounds: int = 0
+    #: candidates drafted across live slots (``window - 1`` per live slot
+    #: per round)
+    drafted_tokens: int = 0
+    #: drafted candidates the target accepted (``n_acc - 1`` summed over
+    #: live slots); ``accepted / drafted`` is the acceptance rate
+    accepted_drafted_tokens: int = 0
+    #: accepted drafted tokens per request, keyed on ``Request.rid``
+    accepted_by_rid: dict[int, int] = field(default_factory=dict)
+    #: each request's draft window in its latest round (dynamic ``spec_k``
+    #: only)
+    spec_window_by_rid: dict[int, int] = field(default_factory=dict)
 
     @property
     def decode_steps(self) -> int:
-        """Steps that ran a backend decode — the number serving benchmarks
-        report as decode steps."""
+        """Steps that ran a backend decode (``sched_step`` or
+        ``sched_spec_step``) — the number serving benchmarks report as
+        decode steps."""
         return self.steps - self.admission_steps
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted candidates the target accepted (0.0 when
+        nothing was drafted)."""
+        if not self.drafted_tokens:
+            return 0.0
+        return self.accepted_drafted_tokens / self.drafted_tokens
 
     def queue_wait_summary(self) -> dict:
         """mean/p50/max of per-request queue wait (seconds; zeros when no
@@ -130,7 +166,8 @@ class ContinuousScheduler:
     def __init__(self, backend: ScheduleBackend,
                  on_token: Callable[[Request, int], None] | None = None,
                  admission_budget: int | None = None,
-                 clock: Callable[[], float] | None = None):
+                 clock: Callable[[], float] | None = None,
+                 dynamic_spec_k: bool = False):
         """``admission_budget`` caps how many prefill chunks advance per
         :meth:`step` across all in-flight admissions (None = finish each
         admission within the step it starts).  With a budget, a long prompt
@@ -151,7 +188,14 @@ class ContinuousScheduler:
 
         ``clock`` is the time source for queue-wait accounting (default
         ``time.perf_counter``); a virtual-clock load generator injects its
-        own."""
+        own.
+
+        ``dynamic_spec_k`` (speculative backends) sizes each request's next
+        draft window from its measured acceptance: an EWMA of the per-round
+        accepted fraction (weight :data:`SPEC_ACC_EWMA` on the newest
+        round, starting at 1.0) maps to a window in ``[2, spec_k]``, so a
+        request whose drafts keep being rejected soon drafts one token a
+        round while well-predicted ones keep the full ``spec_k``."""
         if admission_budget is not None and admission_budget < 1:
             raise ValueError("admission_budget must be >= 1 (or None)")
         self.backend = backend
@@ -159,6 +203,9 @@ class ContinuousScheduler:
         self.on_token = on_token
         self.admission_budget = admission_budget
         self.clock = clock if clock is not None else time.perf_counter
+        self.dynamic_spec_k = dynamic_spec_k
+        #: request.rid → EWMA of its per-round accepted-draft fraction
+        self._acc_ewma: dict[int, float] = {}
         #: request.rid → times an affinity pick jumped it while queued
         self._skips: dict[int, int] = {}
         #: request.rid → clock() at submit (queue-wait accounting)
@@ -302,6 +349,8 @@ class ContinuousScheduler:
             self.stats.steps += 1
             self.stats.admission_steps += 1
             return []
+        if getattr(self.backend, "spec_k", 0) >= 2:
+            return self._spec_step()
         self._state, tokens, alive = self.backend.sched_step(self._state)
         finished: list[Request] = []
         for slot, req in enumerate(self.slots):
@@ -316,6 +365,60 @@ class ContinuousScheduler:
             if not bool(alive[slot]):
                 req.done = True
                 self.slots[slot] = None
+                self.completed.append(req)
+                self.stats.completed += 1
+                finished.append(req)
+        self.stats.steps += 1
+        return finished
+
+    def _spec_window(self, req: Request, K: int) -> int:
+        """Next-round draft window for ``req``: the full ``K`` until its
+        first round, then ``2 + round(ewma · (K - 2))``, in ``[2, K]``, so
+        every round still verifies at least one drafted token and
+        acceptance can be measured again."""
+        ewma = self._acc_ewma.get(req.rid, 1.0)
+        return max(2, min(K, 2 + int(round(ewma * (K - 2)))))
+
+    def _spec_step(self) -> list[Request]:
+        """One speculative round: every live slot emits a ragged 1..spec_k
+        token window in order, streaming callbacks fire per token, and
+        acceptance is tallied globally and per request.  Under
+        ``dynamic_spec_k`` each slot's window is sized from its request's
+        acceptance before the round runs."""
+        K = self.backend.spec_k
+        window = [K] * self.B
+        if self.dynamic_spec_k:
+            window = [K if req is None else self._spec_window(req, K)
+                      for req in self.slots]
+        self._state, tokens, n_acc, n_emit, alive = \
+            self.backend.sched_spec_step(self._state, window)
+        self.stats.spec_rounds += 1
+        finished: list[Request] = []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            w = window[slot]
+            accepted = max(int(n_acc[slot]) - 1, 0)
+            self.stats.drafted_tokens += w - 1
+            self.stats.accepted_drafted_tokens += accepted
+            self.stats.accepted_by_rid[req.rid] = \
+                self.stats.accepted_by_rid.get(req.rid, 0) + accepted
+            if self.dynamic_spec_k:
+                self.stats.spec_window_by_rid[req.rid] = w
+                self._acc_ewma[req.rid] = (
+                    SPEC_ACC_EWMA * accepted / (w - 1)
+                    + (1.0 - SPEC_ACC_EWMA) * self._acc_ewma.get(req.rid, 1.0))
+            cb = req.on_token or self.on_token
+            for j in range(int(n_emit[slot])):
+                tok = int(tokens[slot, j])
+                req.out.append(tok)
+                self.stats.emitted_tokens += 1
+                if cb is not None:
+                    cb(req, tok)
+            if not bool(alive[slot]):
+                req.done = True
+                self.slots[slot] = None
+                self._acc_ewma.pop(req.rid, None)
                 self.completed.append(req)
                 self.stats.completed += 1
                 finished.append(req)

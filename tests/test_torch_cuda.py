@@ -1111,3 +1111,129 @@ def test_cold_prefix_store_streams_equal_no_store_on_cuda(cuda, tmp_path,
     st = runs[True][1].prefix_store.stats
     assert st.hit_blocks > 0 and st.reused_tokens > 0
     tdispatch.reset_autotune_cache()
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding on the card: verify, snapshot/rollback, streams
+# ---------------------------------------------------------------------------
+
+
+def _smoke_served(cuda, window=0):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.decode import init_serving_params
+
+    cfg = get_smoke_config("bitnet-b1.58-2b").with_(window=window)
+    return cfg, init_serving_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+
+
+def _admitted_batch(cuda, cfg, served, lengths, policy=None):
+    """A batch-4 engine state with one prompt admitted per slot, as
+    served, and the engine."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    eng = DecodeEngine(served, cfg, batch_size=len(lengths), max_len=64,
+                       prefill_chunk=8, device=cuda, matmul_policy=policy)
+    rng = np.random.default_rng(11)
+    state = eng.sched_start()
+    for slot, n in enumerate(lengths):
+        state = eng.sched_admit(state, slot, Request(
+            prompt=rng.integers(2, cfg.vocab_size, n).tolist(),
+            max_new_tokens=8))
+    return eng, state
+
+
+def test_verify_matches_sequential_decode_on_cuda(cuda, tmp_path,
+                                                  monkeypatch):
+    """On the prior the verify launches each projection once per
+    position, at decode's row count (a kernel plans its launch, and so the
+    order of its f32 sums, by the row count): logits and the KV written
+    equal sequential decode's within 2^-4, the port's serving tolerance
+    (bitwise in chip_smoke's ``verify_check`` at full width)."""
+    from repro_torch.models import decode as tdecode
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    tdispatch.reset_autotune_cache()
+    cfg, served = _smoke_served(cuda)
+    eng, state = _admitted_batch(cuda, cfg, served, [3, 17, 9, 30])
+    cache, start = state["cache"], state["index"] + 1
+    cands = torch.randint(2, cfg.vocab_size, (4, 4), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    seq = {k: v.clone() for k, v in cache.items()}
+    seq_logits = []
+    for j in range(4):
+        logits, seq = tdecode.decode_step(eng.params, cfg, seq, cands[:, j],
+                                          start + j)
+        seq_logits.append(logits)
+    tdispatch.reset_launch_counts()
+    vlogits, vcache = tdecode.verify_step(
+        eng.params, cfg, {k: v.clone() for k, v in cache.items()}, cands,
+        start)
+    torch.cuda.synchronize()
+    assert sum(tdispatch.launch_counts().values()) == 7 * cfg.n_layers * 4
+    assert float((vlogits - torch.stack(seq_logits, 1)).abs().max()) <= 2 ** -4
+    for name in ("k", "v"):
+        assert float((vcache[name].float() - seq[name].float()).abs().max()) \
+            <= 2 ** -4
+    assert torch.equal(vcache["pos"], seq["pos"])
+    tdispatch.reset_autotune_cache()
+
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_snapshot_and_rollback_bitwise_on_cuda(cuda, window):
+    """After verify and ``rollback(keep)``, every kept slot holds what the
+    verify wrote and every rejected one the snapshot's k, v and position
+    (on the 16-slot ring the window from 30 wraps and evicts)."""
+    from repro_torch.models import decode as tdecode
+
+    cfg, served = _smoke_served(cuda, window)
+    eng, state = _admitted_batch(cuda, cfg, served, [3, 17, 9, 30],
+                                 policy="fixed:ref")
+    cache, start = state["cache"], state["index"] + 1
+    cands = torch.randint(2, cfg.vocab_size, (4, 4), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(2))
+    undo = tdecode.snapshot_kv_window(cfg, cache, start, 4)
+    pre = {k: v.clone() for k, v in cache.items()}
+    _, post = tdecode.verify_step(eng.params, cfg, cache, cands, start)
+    post = {k: v.clone() for k, v in post.items()}
+    keep = [0, 1, 3, 4]
+    rolled = tdecode.rollback_kv_window(cfg, cache, undo, torch.tensor(keep))
+    for b in range(4):
+        for j in range(4):
+            s = int(undo["slot"][b, j])
+            want = pre if j >= keep[b] else post
+            for name in ("k", "v", "pos"):
+                assert torch.equal(rolled[name][:, b, s], want[name][:, b, s])
+
+
+@pytest.mark.parametrize("policy", ["fixed:lut_gather", "fixed:tl2"])
+def test_spec_streams_equal_non_spec_on_cuda(cuda, policy):
+    """A reduced bitnet with its first block as draft (most proposals
+    rejected): six requests through four slots give the non-spec engine's
+    canonical-greedy streams, and the pinned kernel launched."""
+    from repro_torch.serving.engine import DecodeEngine, Request, SamplerConfig
+
+    def first_block(node):
+        if isinstance(node, dict):
+            return {k: first_block(v) for k, v in node.items()}
+        return node[:1]
+
+    cfg, served = _smoke_served(cuda)
+    draft = (dict(served, blocks=first_block(served["blocks"])),
+             cfg.with_(n_layers=1))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in (3, 40, 17, 9, 25, 5)]
+    streams = {}
+    for spec in (False, True):
+        eng = DecodeEngine(served, cfg, batch_size=4, max_len=64,
+                           prefill_chunk=8, device=cuda, matmul_policy=policy,
+                           sampler=SamplerConfig(canonical_greedy=True),
+                           draft=draft if spec else None)
+        reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts]
+        tdispatch.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        assert tdispatch.launch_counts()[policy.split(":")[1]] > 0
+        streams[spec] = [r.out for r in reqs]
+    assert streams[True] == streams[False]

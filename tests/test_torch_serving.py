@@ -246,7 +246,9 @@ def test_engine_without_device_needs_a_card():
         tengine.DecodeEngine({}, tcfg, batch_size=1, max_len=16)
 
 
-@pytest.mark.parametrize("kwarg", [{"mesh": object()}, {"draft": object()}])
+@pytest.mark.parametrize("kwarg", [{"mesh": object()},
+                                   {"mesh": object(),
+                                    "draft": ({}, t_smoke(ARCH))}])
 def test_engine_rejects_features_not_ported(kwarg):
     with pytest.raises(NotImplementedError, match="not ported"):
         tengine.DecodeEngine({}, t_smoke(ARCH), batch_size=1, max_len=16,
