@@ -58,7 +58,33 @@ then, with bitnet's tree freed, phi3.5-moe-42b-a6.6b (32 layers, d_model
   * ``moe_int8_w2a8``: ``fixed:w2a8`` with int8 activations, batch 4
     (``w2a8`` and ``grouped_w2a8``);
   * ``moe_autotuned``: ``autotune_shapes`` at bf16 (dense and grouped
-    shapes), then batch 4 under ``auto``.
+    shapes), then batch 4 under ``auto``;
+
+then, with phi3.5's tree freed, the recurrent families, each built layer
+by layer from the seed at full width and depth and served on the prior
+through whole-prompt admission (one single-row ``prefill`` per request,
+``lut_gather`` at the prompt's row count), each tree freed before the
+next is built:
+
+  * zamba2-2.7b (54 Mamba2 layers, d_model 2560, one shared attention+FFN
+    block after every 6th, 9 invocations): ``zamba2_batch4`` (bitnet's
+    batch-4 requests, prompts 3 to 120), ``zamba2_batch1`` (one 40-token
+    prompt, ``tl2`` at decode) and ``zamba2_generational`` (``run()`` on
+    four prompts of one length, one batched prefill at M = 4 x 24, its
+    streams held to ``serve()``'s on the same requests by the margin rule
+    below); ``cross_check`` on the whole-prompt prefill logits; and
+    ``recurrent_check``: a 40-token prompt's prefill against the same
+    prompt fed one token at a time through ``decode_step`` from
+    ``init_cache``;
+  * xlstm-125m (12 layers, d_model 768): ``xlstm_batch4`` (the same
+    requests: its 96 and 120 cross the sLSTM's 64-step chunk), its
+    ``cross_check``, and ``recurrent_check`` at 70 and 120 tokens, where
+    the reference's padded sLSTM steps would show.
+
+Their kernel phase checks ``lut_gather`` at decode (M=4) and at the longest
+whole prompt (M=120) and ``tl2`` at M=1 on each model's shapes (zamba2's
+also ``tl2`` at int8, M=4); a whole-prompt path asserts that every prompt
+length it admits selects, at every shape, what M=120 selects.
 
 The kernel phase of each model checks every (kernel, M or capacity C,
 activation dtype) that dispatch selects on any of its paths, decode and
@@ -98,6 +124,43 @@ Tolerances:
     are bitwise equal.  The spec streams are held equal to the non-spec
     ones: both select on bf16-rounded logits, which absorbs that noise
     unless a top logit lies within it of a rounding boundary.
+  * zamba2's 63 blocks (54 Mamba2 layers, 9 shared-block calls) carry a
+    one-ulp difference further than bitnet's 30: on an NVIDIA H100 80GB
+    HBM3 at 700 W its whole-model prefill logits sit 0.199 from
+    ``fixed:ref``'s, over the 2^-3 bitnet holds, and ``run()`` and
+    ``serve()`` part at margins of 0.094 and 0.016.  Its kernels are therefore held block by block
+    (``recurrent_layer_check``: each Mamba2 mixer, each shared block's
+    attention and FFN, each mLSTM and sLSTM block fed the reference's own
+    input, within 2^-5 of the output's largest magnitude, as the MoE's
+    ``layer_check``), and its whole-model logits only to 2^-1, an eighth
+    of their magnitude (a kernel that is wrong moves them by the order of
+    the logits themselves); xlstm's 12 layers keep 2^-3.
+  * ``recurrent_check``: the prefill runs ``lut_gather`` at M = the
+    prompt length and the token-by-token decode ``tl2`` at M = 1, which
+    sum in other orders, and the SSD, mLSTM, sLSTM gate products and
+    attention reduce in other orders chunked than step by step.  At full
+    width these recurrences carry a last-bit difference far: on the same
+    card xlstm's sLSTM ``h`` ends 10% apart after 70 tokens and zamba2's
+    SSM state 6.5% apart after 40, and the JAX package's own prefill and
+    token-by-token decode part as far on the CPU at full width.  So the
+    whole model is held only to a sanity bound (logits within 2^-1, every
+    state leaf within 2^-2 of its largest magnitude, the slot positions
+    equal), and each block to a tight one (``block_step_check``): every
+    Mamba2, mLSTM and sLSTM block fed the prompt's own input at that
+    block, once in its prefill form and once a position at a time in its
+    decode form from the initial state; outputs and final states within
+    2^-5 of their largest magnitude.  xlstm's cells keep ``(C, n)``
+    scaled by ``e^-m`` with a running stabilizer ``m`` (a max of log
+    gates) and read them only as ``C e^m, n e^m``: a last-bit change of a
+    gate input moves ``m`` and rescales ``C`` and ``n`` with it, so the
+    stepped ``C``, ``n`` are brought to the prefill's stabilizer (times
+    ``e^(m_step - m_prefill)``) before they are compared, and the
+    stabilizers themselves are reported, not held.
+  * ``zamba2_generational``: ``run()`` prefills at M = 96 where
+    ``serve()`` prefills each request at M = 24, so their logits differ in
+    f32 rounding; the streams must agree up to the first token where they
+    differ, and there the top-2 margin of the bf16 logits (teacher-forced
+    through one decode step a token) must be below 2^-3.
   * MoE: the top-2 routing is discontinuous in the hidden state, so a
     one-ulp difference can send a token to another expert and move the
     logits by more than any summation-order tolerance.  Each MoE path is
@@ -142,15 +205,27 @@ OUT_DIR = os.path.join(ROOT, "smoke_out")
 SEED = 0
 ARCH = "bitnet-b1.58-2b"
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+ZAMBA = "zamba2-2.7b"
+XLSTM = "xlstm-125m"
+#: the models that admit whole prompts (no chunked prefill)
+WHOLE_PROMPT = (ZAMBA, XLSTM)
 #: per model, (K, N) of its dense ternary projections and how many of each
 #: one layer has: bitnet wq, wo (attention) | wk, wv | wg, wi | down (the
-#: FFN's wo); phi3.5-moe wq, wo | wk, wv (its FFN is the MoE)
+#: FFN's wo); phi3.5-moe wq, wo | wk, wv (its FFN is the MoE); zamba2 one
+#: group of 6 Mamba2 layers and the shared block: wz, wx | the mixer's wo |
+#: wq, wk, wv, wo | wi, wg | the FFN's wo; xlstm one mLSTM and one sLSTM
+#: layer: up | wq, wk, wv | down | ffn_up | ffn_down
 LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
                    (6912, 2560): 1},
-            MOE_ARCH: {(4096, 4096): 2, (4096, 1024): 2}}
+            MOE_ARCH: {(4096, 4096): 2, (4096, 1024): 2},
+            ZAMBA: {(2560, 5120): 12, (5120, 2560): 6, (2560, 2560): 4,
+                    (2560, 10240): 2, (10240, 2560): 1},
+            XLSTM: {(768, 3072): 1, (1536, 1536): 3, (1536, 768): 1,
+                    (768, 2048): 1, (1024, 768): 1}}
 #: per model, (E, K, N) of its expert stacks and how many one layer has:
 #: wi, wg | wo
-LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1}}
+LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1},
+             ZAMBA: {}, XLSTM: {}}
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -164,15 +239,36 @@ LOGIT_ATOL = 2.0 ** -3
 #: the output's largest magnitude (see the module docstring)
 LAYER_RTOL = 2.0 ** -5
 DEVICE = "cuda"
-#: admission prefill chunk of every serving path (the M of prefill matmuls)
+#: admission prefill chunk of every chunked serving path (the M of prefill
+#: matmuls)
 PREFILL_CHUNK = 32
+#: the whole-prompt row count the recurrent models' kernels are checked at
+#: (the longest prompt)
+WHOLE_M = 120
+#: the generational path: requests, their one prompt length and budget
+GEN_REQUESTS = 4
+GEN_LENGTH = 24
+GEN_NEW_TOKENS = 16
+#: recurrent_check: prompt lengths per model and the bounds (see the
+#: module docstring)
+RECURRENT_LENGTHS = {ZAMBA: [40], XLSTM: [70, 120]}
+RECURRENT_LOGIT_ATOL = 2.0 ** -1
+RECURRENT_STATE_RTOL = 2.0 ** -2
+#: xlstm's stabilized states and their stabilizers (see the module
+#: docstring)
+STABILIZED = {"mC": "mm", "mn": "mm", "sc": "sm", "sn": "sm"}
+#: cross_check's bound on the whole-model prefill logits, per model
+CROSS_ATOL = {ZAMBA: 2.0 ** -1}
 #: serving paths on the prior: name -> (model, decode batch, activation
 #: dtype, policy)
 PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
          "batch1": (ARCH, 1, "bfloat16", None),
          "int8": (ARCH, 4, "int8", None),
          "moe_batch4": (MOE_ARCH, 4, "bfloat16", None),
-         "moe_int8_w2a8": (MOE_ARCH, 4, "int8", "fixed:w2a8")}
+         "moe_int8_w2a8": (MOE_ARCH, 4, "int8", "fixed:w2a8"),
+         "zamba2_batch4": (ZAMBA, 4, "bfloat16", "prior"),
+         "zamba2_batch1": (ZAMBA, 1, "bfloat16", "prior"),
+         "xlstm_batch4": (XLSTM, 4, "bfloat16", "prior")}
 #: the traffic phase: scenario, arrivals kept (the scenario's lengths are
 #: kept whole), and the stores' budgets: one large enough that nothing is
 #: evicted, and the engine's default, which must evict
@@ -239,6 +335,12 @@ MOE_LAYER_ROWS = [(name, m, act) for name, act in (("grouped_dequant",
                                                      "bfloat16"),
                                                     ("grouped_w2a8", "int8"))
                   for m in (4, PREFILL_CHUNK)]
+#: the recurrent models' per-layer rows: what their paths run on the prior
+RECURRENT_LAYER_ROWS = {
+    ZAMBA: [("lut_gather", 4, "bfloat16"), ("lut_gather", WHOLE_M, "bfloat16"),
+            ("tl2", 1, "bfloat16"), ("tl2", 4, "int8")],
+    XLSTM: [("lut_gather", 4, "bfloat16"), ("lut_gather", WHOLE_M, "bfloat16"),
+            ("tl2", 1, "bfloat16")]}
 
 RECORD: dict = {}
 
@@ -451,14 +553,16 @@ def capacity(model: str, m: int) -> int:
 def path_selection(model: str, batch: int, act: str,
                    policy: str | None = None, spec_k: int = 0) -> dict:
     """What dispatch selects on one serving path of ``model``: ``{shape:
-    kernel}`` for its decode M (the batch) and its prefill M (the chunk),
+    kernel}`` for its decode M (the batch) and its prefill M (the chunk;
+    ``WHOLE_M`` for a whole-prompt model, see :func:`whole_prompt_rows`),
     and with ``spec_k`` its verify M (batch x spec_k; a draft cut from the
     model decodes and prefills at the first two); a dense shape is ``(M,
     K, N)``, a grouped one ``(E, C, K, N)``."""
     from repro_torch.kernels.dispatch import select_kernel
 
     sel = {}
-    for m in (batch, PREFILL_CHUNK) + ((batch * spec_k,) if spec_k else ()):
+    prefill_m = WHOLE_M if model in WHOLE_PROMPT else PREFILL_CHUNK
+    for m in (batch, prefill_m) + ((batch * spec_k,) if spec_k else ()):
         for k, n in LAYER_KN[model]:
             sel[(m, k, n)] = select_kernel(m, k, n, act, policy=policy).name
         for e, k, n in LAYER_EKN[model]:
@@ -466,6 +570,23 @@ def path_selection(model: str, batch: int, act: str,
             sel[(e, c, k, n)] = select_kernel(c, k, n, act, policy=policy,
                                               e=e).name
     return sel
+
+
+def whole_prompt_rows(model: str, rows, act: str,
+                      policy: str | None = None) -> None:
+    """A whole-prompt model prefills at each prompt's row count: each of
+    ``rows`` must select, at every shape of the model, the kernel
+    ``WHOLE_M`` selects (the one the kernel phase checked there)."""
+    from repro_torch.kernels.dispatch import select_kernel
+
+    for m in sorted(set(rows)):
+        for k, n in LAYER_KN[model]:
+            got = select_kernel(m, k, n, act, policy=policy).name
+            want = select_kernel(WHOLE_M, k, n, act, policy=policy).name
+            if got != want:
+                raise AssertionError(f"{model}: a prompt of {m} rows selects "
+                                     f"{got} at K={k} N={n}, M={WHOLE_M} "
+                                     f"{want}")
 
 
 def selected_cases(model: str, selection: dict, act: str) -> set:
@@ -481,9 +602,14 @@ def kernel_cases(model: str) -> list[tuple]:
     int8 also at the prefill chunk, M=32), each dense
     kernel ported after the first slice at decode (M=4) and prefill (M=32);
     phi3.5-moe's grouped kernels at decode (C=1) and at the admission chunk
-    (C=5); plus every one that a prior, pinned or speculative serving path
+    (C=5); the recurrent models' ``lut_gather`` at decode (M=4) and at the
+    longest whole prompt (M=120) and ``tl2`` at M=1 (zamba2's also at int8,
+    M=4); plus every one that a prior, pinned or speculative serving path
     selects (the speculative ones also at the verify, M=16)."""
-    if model == ARCH:
+    if model in WHOLE_PROMPT:
+        cases = {(model, name, m, act)
+                 for name, m, act in RECURRENT_LAYER_ROWS[model]}
+    elif model == ARCH:
         cases = {(ARCH, "lut_gather", 4, "bfloat16"),
                  (ARCH, "lut_gather", 32, "bfloat16"),
                  (ARCH, "lut_onehot", 4, "bfloat16"),
@@ -601,6 +727,8 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
 
     act = "int8" if cfg.act_dtype == "int8" else cfg.dtype
     selection = path_selection(model, batch, act, cfg.matmul_policy)
+    if model in WHOLE_PROMPT:
+        whole_prompt_rows(model, lengths, act, cfg.matmul_policy)
     cases = selected_cases(model, selection, act)
     expect = {name for _, name, _, _ in cases}
     unchecked = sorted(cases - checked)
@@ -1106,11 +1234,18 @@ def _prompt_chunks(torch, vocab: int):
 
 def _prefill_logits(torch, served, cfg):
     """The cross-check prompt's last-token logits after prefill under
-    ``cfg``, chunk by chunk as admission runs it."""
+    ``cfg``, as admission runs it: chunk by chunk, or whole where the
+    model admits whole prompts."""
     from repro_torch.models.decode import (bind_serving_weights, init_cache,
-                                           prefill_chunk)
+                                           prefill, prefill_chunk)
 
     p = bind_serving_weights(served, cfg)
+    if cfg.name in WHOLE_PROMPT:
+        toks = torch.cat([t[:, :take + 1]
+                          for t, _, take in _prompt_chunks(torch,
+                                                           cfg.vocab_size)], 1)
+        return prefill(p, cfg, {"tokens": toks}, 256)[1][
+            0, :cfg.vocab_size].float()
     cache = init_cache(cfg, 1, 256, device=DEVICE)
     for toks, pos, take in _prompt_chunks(torch, cfg.vocab_size):
         cache, out = prefill_chunk(p, cfg, cache, toks, pos, take)
@@ -1184,7 +1319,8 @@ def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     from repro_torch.models.layers import route
 
     path = cfg.matmul_policy or "auto"
-    atol = 0.0 if cfg.act_dtype == "int8" else LOGIT_ATOL
+    atol = 0.0 if cfg.act_dtype == "int8" else CROSS_ATOL.get(cfg.name,
+                                                              LOGIT_ATOL)
     logits, routes = {}, {}
     moe_ffn = model_mod.moe_ffn
 
@@ -1271,6 +1407,298 @@ def layer_check(torch, served, cfg) -> dict:
             "worst_err_over_max": worst}
 
 
+def recurrent_layer_check(torch, served, cfg) -> dict:
+    """The cross-check prompt through a whole-prompt model with every
+    block of the path fed the reference's own input (zamba2: each Mamba2
+    mixer, each shared block's attention and FFN; xlstm: each mLSTM and
+    sLSTM block): each block's output through the path's kernels within
+    ``LAYER_RTOL`` of the largest magnitude of ``fixed:ref``'s."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.decode import bind_serving_weights
+    from repro_torch.models.layers import attention, ffn, rms_norm
+    from repro_torch.models.model import embed_tokens
+
+    path = cfg.matmul_policy or "auto"
+    cp, cr = cfg, cfg.with_(matmul_policy="fixed:ref")
+    P, R = bind_serving_weights(served, cp), bind_serving_weights(served, cr)
+    toks = torch.cat([t[:, :take + 1] for t, _, take in
+                      _prompt_chunks(torch, cfg.vocab_size)], 1)
+    positions = torch.arange(toks.shape[1], device=DEVICE)
+    h = embed_tokens(served, cfg, toks)
+    worst, blocks = 0.0, 0
+
+    def held(fn, what):
+        nonlocal worst, blocks
+        got, want = fn(P, cp), fn(R, cr)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        worst, blocks = max(worst, err / scale), blocks + 1
+        if not err <= LAYER_RTOL * scale:
+            raise AssertionError(f"{cfg.name} {path} {what}: max abs err "
+                                 f"{err} > {LAYER_RTOL} * {scale}")
+        return want
+
+    if cfg.name == ZAMBA:
+        for i in range(cfg.n_layers):
+            hn = rms_norm(R["mamba_blocks"][i]["ln"], h)
+            h = h + held(lambda p, c: ssm.mamba2_block(
+                p["mamba_blocks"][i]["mixer"], hn, c)[0], f"mamba2 {i}")
+            if (i + 1) % cfg.attn_every:
+                continue
+            hn = rms_norm(R["shared_attn"]["ln1"], h)
+            h = h + held(lambda p, c: attention(
+                p["shared_attn"]["attn"], hn, c, positions=positions,
+                window=cfg.window), f"shared attention after {i}")
+            hn = rms_norm(R["shared_attn"]["ln2"], h)
+            h = h + held(lambda p, c: ffn(p["shared_attn"]["ffn"], hn, c),
+                         f"shared ffn after {i}")
+    else:
+        for i in range(cfg.n_layers // 2):
+            hn = rms_norm(R["mlstm_blocks"][i]["ln"], h)
+            h = h + held(lambda p, c: xlstm.mlstm_block(
+                p["mlstm_blocks"][i]["cell"], hn, c)[0], f"mlstm {i}")
+            hn = rms_norm(R["slstm_blocks"][i]["ln"], h)
+            h = h + held(lambda p, c: xlstm.slstm_block(
+                p["slstm_blocks"][i]["cell"], hn, c)[0], f"slstm {i}")
+    return {"arch": cfg.name, "policy": path, "act_dtype": cfg.act_dtype,
+            "blocks": blocks, "rtol": LAYER_RTOL,
+            "worst_err_over_max": worst}
+
+
+def aligned(torch, state, m_state, m_to):
+    """A stabilized state (``C`` or ``n``, kept times ``e^-m``) brought
+    from its stabilizer ``m_state`` to ``m_to``, in f64."""
+    shift = torch.exp(m_state.double() - m_to.double())
+    return state.double() * shift.reshape(
+        *shift.shape, *[1] * (state.ndim - shift.ndim))
+
+
+def block_step_check(torch, served, cfg, S: int) -> dict:
+    """Each recurrent block of a whole-prompt model (zamba2's Mamba2
+    mixers; xlstm's mLSTM and sLSTM blocks) fed the prefill's own input at
+    that block for a random ``S``-token prompt, once in its prefill form
+    and once a position at a time in its decode form from the initial
+    state, on the prior: outputs and final states within ``LAYER_RTOL``
+    of their largest magnitude (stabilized states aligned first, see the
+    module docstring).  The residual stream advances by the prefill
+    form's output, so no block's error reaches the next."""
+    import numpy as np
+
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.decode import _shared_block, bind_serving_weights
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import embed_tokens
+
+    p = bind_serving_weights(served, cfg)
+    toks = torch.from_numpy(np.random.default_rng(SEED + S).integers(
+        2, cfg.vocab_size, size=(1, S))).to(DEVICE)
+    positions = torch.arange(S, device=DEVICE)
+    h = embed_tokens(p, cfg, toks)
+    worst, blocks = {}, 0
+
+    def held(what, got, want):
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.double().abs().max())
+        worst[what] = max(worst.get(what, 0.0), err / scale)
+        if not err <= LAYER_RTOL * scale:
+            raise AssertionError(f"{cfg.name} S={S} {what}: stepped vs "
+                                 f"prefill max abs err {err} > "
+                                 f"{LAYER_RTOL} * {scale}")
+
+    def stepped(fn, x, state):
+        ys = []
+        for t in range(S):
+            y, state = fn(x[:, t:t + 1], state)
+            ys.append(y)
+        return torch.cat(ys, 1), state
+
+    if cfg.name == ZAMBA:
+        for i, blk in enumerate(p["mamba_blocks"]):
+            h_in = rms_norm(blk["ln"], h)
+            y, (st, cv) = ssm.mamba2_block(blk["mixer"], h_in, cfg)
+            d_in, H, N = ssm.ssm_dims(cfg)
+            st0 = torch.zeros((1, H, N, cfg.ssm_head_dim), device=DEVICE)
+            cv0 = torch.zeros((1, cfg.ssm_conv - 1, d_in + 2 * N),
+                              dtype=torch.bfloat16, device=DEVICE)
+            ys, (sst, scv) = stepped(lambda x, s: ssm.mamba2_block(
+                blk["mixer"], x, cfg, state=s[0], conv_state=s[1]), h_in,
+                (st0, cv0))
+            held("mamba2 y", ys, y)
+            held("mamba2 ssm state", sst, st)
+            held("mamba2 conv state", scv, cv)
+            blocks += 1
+            h = h + y
+            if (i + 1) % cfg.attn_every == 0:
+                h, _ = _shared_block(p["shared_attn"], h, cfg,
+                                     positions=positions, window=cfg.window,
+                                     return_kv=True)
+    else:
+        for mblk, sblk in zip(p["mlstm_blocks"], p["slstm_blocks"]):
+            h_in = rms_norm(mblk["ln"], h)
+            y, (C, n, m) = xlstm.mlstm_block(mblk["cell"], h_in, cfg)
+            _, H, dk = xlstm.mlstm_dims(cfg)
+            init = (torch.zeros((1, H, dk, dk), device=DEVICE),
+                    torch.zeros((1, H, dk), device=DEVICE),
+                    torch.full((1, H), -1e30, device=DEVICE))
+            ys, (sC, sn, sm) = stepped(lambda x, s: xlstm.mlstm_block(
+                mblk["cell"], x, cfg, state=s, decode=True), h_in, init)
+            held("mlstm y", ys, y)
+            held("mlstm C", aligned(torch, sC, sm, m), C)
+            held("mlstm n", aligned(torch, sn, sm, m), n)
+            h = h + y
+            h_in = rms_norm(sblk["ln"], h)
+            y, (c, n, hh, m) = xlstm.slstm_block(sblk["cell"], h_in, cfg)
+            ys, (sc, sn, sh, sm) = stepped(lambda x, s: xlstm.slstm_block(
+                sblk["cell"], x, cfg, state=s), h_in, None)
+            held("slstm y", ys, y)
+            held("slstm c", aligned(torch, sc, sm, m), c)
+            held("slstm n", aligned(torch, sn, sm, m), n)
+            held("slstm h", sh, hh)
+            blocks += 2
+            h = h + y
+    return {"arch": cfg.name, "prompt_len": S, "blocks": blocks,
+            "rtol": LAYER_RTOL, "worst_err_over_max": worst}
+
+
+def top2_margin(torch, engine, cfg, prompt, stream, t: int) -> float:
+    """The top-2 margin of the bf16-rounded logits before ``stream[t]``,
+    teacher-forced: the prompt's whole prefill, then one decode step a
+    token of ``stream[:t]``."""
+    from repro_torch.models.decode import decode_step, prefill
+
+    toks = torch.tensor([prompt], dtype=torch.int64, device=DEVICE)
+    cache, logits = prefill(engine.params, cfg, {"tokens": toks},
+                            engine.max_len)
+    for i in range(t):
+        logits, cache = decode_step(
+            engine.params, cfg, cache,
+            torch.tensor([stream[i]], device=DEVICE), len(prompt) + i)
+    top = logits[0, :cfg.vocab_size].to(torch.bfloat16).float().topk(2)[0]
+    return float(top[0] - top[1])
+
+
+def generational_path(torch, served, cfg, checked: set) -> dict:
+    """``DecodeEngine.run`` (generational batching) on ``GEN_REQUESTS``
+    requests of one prompt length at batch 4, canonical greedy, with the
+    launch counters set to 0 just before and read just after; then
+    ``serve()`` on the same requests.  The streams must agree by the
+    margin rule (see the module docstring).  Returns the path's record."""
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.serving.engine import DecodeEngine, SamplerConfig
+
+    model, batch, act = cfg.name, GEN_REQUESTS, cfg.dtype
+    selection = path_selection(model, batch, act, cfg.matmul_policy)
+    whole_prompt_rows(model, [GEN_LENGTH, batch * GEN_LENGTH], act,
+                      cfg.matmul_policy)
+    cases = selected_cases(model, selection, act)
+    if cases - checked:
+        raise AssertionError(f"generational path selects unchecked "
+                             f"{sorted(cases - checked)}")
+    engine = DecodeEngine(served, cfg, batch_size=batch, max_len=256,
+                          prefill_chunk=PREFILL_CHUNK, device=DEVICE,
+                          sampler=SamplerConfig(canonical_greedy=True))
+    engine.run(make_requests([GEN_LENGTH], 2, cfg.vocab_size, SEED + 99))
+    torch.cuda.synchronize()
+    reqs = make_requests([GEN_LENGTH] * batch, GEN_NEW_TOKENS, cfg.vocab_size,
+                         SEED + 11)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(counts, {name for _, name, _, _ in cases})
+    for r in reqs:
+        if not (r.done and len(r.out) == GEN_NEW_TOKENS) or \
+                not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid} ended with {r.out}")
+    base = make_requests([GEN_LENGTH] * batch, GEN_NEW_TOKENS,
+                         cfg.vocab_size, SEED + 11)
+    engine.serve(base)
+    divergences = []
+    for i, (a, b) in enumerate(zip(reqs, base)):
+        if a.out == b.out:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a.out, b.out)) if x != y)
+        margin = top2_margin(torch, engine, cfg, b.prompt, b.out, t)
+        divergences.append({"request": i, "position": t, "margin": margin})
+        if not margin < LOGIT_ATOL:
+            raise AssertionError(f"run() and serve() streams of request {i} "
+                                 f"differ at {t}, where the top-2 margin "
+                                 f"{margin} is not below {LOGIT_ATOL}")
+    n_tok = sum(len(r.out) for r in reqs)
+    del engine
+    return {"model": model, "policy": cfg.matmul_policy or "auto",
+            "act": act, "batch": batch, "requests": len(reqs),
+            "prompt_lengths": [GEN_LENGTH] * batch, "new_tokens": n_tok,
+            "decode_steps": GEN_NEW_TOKENS - 1, "seconds": dt,
+            "tokens_per_s": n_tok / dt,
+            "decode_step_ms_with_prefill": dt / GEN_NEW_TOKENS * 1e3,
+            "streams_equal_serve": not divergences,
+            "divergences": divergences, "launches": counts,
+            "selected": {f"M{m}:K{k}:N{n}": name
+                         for (m, k, n), name in selection.items()}}
+
+
+def recurrent_check(torch, served, cfg, S: int) -> dict:
+    """A random ``S``-token prompt's whole prefill against the same prompt
+    fed one token at a time through ``decode_step`` from ``init_cache``,
+    on the prior: last-position logits within ``RECURRENT_LOGIT_ATOL`` and
+    every cache leaf within ``RECURRENT_STATE_RTOL`` of its largest
+    magnitude (slot positions equal)."""
+    import numpy as np
+
+    from repro_torch.models.decode import (bind_serving_weights, decode_step,
+                                           init_cache, prefill)
+
+    whole_prompt_rows(cfg.name, [S], cfg.dtype, cfg.matmul_policy)
+    p = bind_serving_weights(served, cfg)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + S).integers(
+        2, cfg.vocab_size, size=(1, S))).to(DEVICE)
+    t0 = time.perf_counter()
+    cw, lw = prefill(p, cfg, {"tokens": prompt}, 256)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cs = init_cache(cfg, 1, 256, device=DEVICE)
+    for i in range(S):
+        ls, cs = decode_step(p, cfg, cs, prompt[:, i], i)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lw, ls = lw[0, :cfg.vocab_size], ls[0, :cfg.vocab_size]
+    logit_diff = float((lw - ls).abs().max())
+    atol, rtol = RECURRENT_LOGIT_ATOL, RECURRENT_STATE_RTOL
+    if not (torch.isfinite(lw).all() and torch.isfinite(ls).all()):
+        raise AssertionError("non-finite logits")
+    if not logit_diff <= atol:
+        raise AssertionError(f"{cfg.name} S={S}: prefill vs token-by-token "
+                             f"logits differ by {logit_diff}")
+    leaves = {}
+    for name, leaf in cw.items():
+        if name == "pos":
+            if not torch.equal(leaf, cs[name]):
+                raise AssertionError(f"{cfg.name} S={S}: slot positions "
+                                     f"differ")
+            continue
+        a = leaf.double()
+        b = (aligned(torch, cs[name], cs[STABILIZED[name]],
+                     cw[STABILIZED[name]]) if name in STABILIZED
+             else cs[name].double())
+        err, scale = float((a - b).abs().max()), float(a.abs().max())
+        leaves[name] = {"max_abs_diff": err, "max_abs": scale}
+        if name in STABILIZED.values():
+            continue        # the stabilizers themselves: reported only
+        if not err <= rtol * scale:
+            raise AssertionError(f"{cfg.name} S={S}: state {name} differs "
+                                 f"by {err} > {rtol} * {scale}")
+    return {"arch": cfg.name, "prompt_len": S, "logits_max_abs_diff":
+            logit_diff, "logits_atol": atol,
+            "max_abs_logit": float(lw.abs().max()),
+            "argmax_equal": bool(lw.argmax() == ls.argmax()),
+            "state_rtol": rtol, "states": leaves,
+            "prefill_s": t1 - t0, "token_by_token_s": t2 - t1}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1312,6 +1740,55 @@ def autotune_phase(torch, served, cfg, measurements: int = 2) -> dict:
             "winners_repeated": sum(
                 min(first[s], key=first[s].get) == min(r, key=r.get)
                 for s, r in results.items())}
+
+
+def recurrent_phase(torch, rows: list, checked: set, flush,
+                    card: str) -> dict:
+    """zamba2-2.7b, then xlstm-125m (see the module docstring): each
+    model's kernel checks (appended to ``rows`` and ``checked``), its tree
+    built at full width and depth, its paths served, ``cross_check`` and
+    ``recurrent_check``; each tree freed before the next is built.
+    Returns ``{path: record}``."""
+    import gc
+
+    lengths = [3, 120, 17, 64, 33, 96, 5, 48]
+    paths = {}
+    for model in WHOLE_PROMPT:
+        cases = kernel_cases(model)
+        rows += check_kernels(torch, cases, flush)
+        checked |= set(cases)
+        for name, m, act in RECURRENT_LAYER_ROWS[model]:
+            emit("layer", kernel=name, **layer_summary(rows, name, model, m,
+                                                       act))
+        cfg, served = build_model(torch, model)
+        # on the prior: bitnet's autotune measured its 2560 x 2560 shape,
+        # which zamba2's shared attention shares
+        cfg = cfg.with_(matmul_policy="prior")
+
+        def run_path(name, **kw):
+            paths[name] = serve_path(torch, served, cfg, model,
+                                     checked=checked, **kw)
+            emit(f"serve_{name}", gpu=card, **paths[name])
+            torch.cuda.empty_cache()
+
+        tag = model.split("-")[0]
+        run_path(f"{tag}_batch4", batch=4, lengths=lengths, new_tokens=16)
+        if model == ZAMBA:
+            run_path("zamba2_batch1", batch=1, lengths=[40], new_tokens=16)
+            paths["zamba2_generational"] = generational_path(
+                torch, served, cfg, checked)
+            emit("serve_zamba2_generational", gpu=card,
+                 **paths["zamba2_generational"])
+        emit("layer_check", **recurrent_layer_check(torch, served, cfg))
+        emit("cross_check", **cross_check(torch, served, cfg))
+        for n in RECURRENT_LENGTHS[model]:
+            emit("block_step_check", **block_step_check(torch, served, cfg,
+                                                        n))
+            emit("recurrent_check", **recurrent_check(torch, served, cfg, n))
+        del served, run_path
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
 
 
 def packed_gb(tree) -> float:
@@ -1405,7 +1882,7 @@ def main() -> int:
     def run_path(name, c, model=ARCH, **kw):
         paths[name] = serve_path(torch, served, c, model, checked=checked,
                                  **kw)
-        emit(f"serve_{name}", **paths[name])
+        emit(f"serve_{name}", gpu=card, **paths[name])
         torch.cuda.empty_cache()
 
     # 1. bitnet on the prior, on the empty cache
@@ -1491,7 +1968,13 @@ def main() -> int:
     emit("forced_check", **forced_check(torch, served, cfg))
     emit("layer_check", **layer_check(torch, served, cfg))
     RECORD["autotune"] = tuned
-    del served, flush
+
+    # 5. the recurrent families, with phi3.5's tree freed first
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(recurrent_phase(torch, rows, checked, flush, card))
+    del flush
 
     kernels = []
     for name, (src, replaces, model, m, act) in SOURCES.items():

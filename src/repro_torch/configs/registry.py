@@ -4,11 +4,13 @@ from __future__ import annotations
 
 import re
 
-from repro_torch.configs import bitnet_2b, phi3p5_moe
+from repro_torch.configs import (bitnet_2b, phi3p5_moe, xlstm_125m,
+                                 zamba2_2p7b)
 from repro_torch.models.config import ModelConfig, reduced
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
-                                 for m in [bitnet_2b, phi3p5_moe]}
+                                 for m in [bitnet_2b, phi3p5_moe, zamba2_2p7b,
+                                          xlstm_125m]}
 
 
 def _resolve(name: str) -> str:

@@ -17,6 +17,10 @@ Usage (on the card):
       [--steps 8] [--act-dtype none|int8] [--policy auto] [--smoke] \
       [--scenario chat|rag|agentic|code]
   python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
+  python -m repro_torch.launch.profile --arch zamba2-2.7b --batch 4
+
+(zamba2-2.7b and xlstm-125m admit each slot's prompt through one
+whole-prompt prefill.)
 """
 
 from __future__ import annotations

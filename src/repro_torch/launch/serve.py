@@ -9,10 +9,13 @@ Usage:
       [--policy auto] [--autotune] [--prefix-cache] [--prefix-cache-mb 64] \
       [--scenario chat|rag|agentic|code] [--scenario-seed 0] \
       [--draft <arch>] [--spec-k 4] [--dynamic-spec-k] \
-      [--device cuda|cpu] [--seed 0]
+      [--discipline continuous|generational] [--device cuda|cpu] [--seed 0]
 
-``--arch`` takes bitnet-b1.58-2b or phi3.5-moe-42b-a6.6b (16 experts,
-top-2, an MoE FFN on every layer).  Weights are random (there is no
+``--arch`` takes bitnet-b1.58-2b, phi3.5-moe-42b-a6.6b (16 experts,
+top-2, an MoE FFN on every layer), zamba2-2.7b (54 Mamba2 layers and one
+shared attention+FFN block after every 6th) or xlstm-125m (alternating
+mLSTM/sLSTM layers); the last two admit each request through one
+whole-prompt prefill.  Weights are random (there is no
 checkpoint in the repository); ``decode.init_serving_params`` packs each
 layer as it is drawn, so the bf16 tree is never held (phi3.5-moe's would
 not fit the card).  Every ternary projection goes through
@@ -48,6 +51,13 @@ vocabulary (a mismatch raises ``ValueError``), and works with
 ``--scenario`` too.  ``--dynamic-spec-k`` sizes each request's draft
 window from its measured acceptance.  The launcher prints the speculative
 line: rounds, accepted drafted tokens and tokens per decode step.
+
+``--discipline generational`` serves the fixed request list through
+``DecodeEngine.run``: one batched prefill of the left-padded prompts, the
+batch turning over at the pace of its slowest request (``--requests``
+must not exceed ``--batch``; a ``--scenario`` replay is continuous).
+The fixed requests' prompts are 2 tokens long, 3 on zamba2 (its prefill
+needs ``ssm_conv - 1`` tokens).
 """
 
 from __future__ import annotations
@@ -118,6 +128,11 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
     ap.add_argument("--dynamic-spec-k", action="store_true",
                     help="with --draft: size each request's next draft "
                     "window from its measured acceptance, in [2, --spec-k]")
+    ap.add_argument("--discipline", choices=["continuous", "generational"],
+                    default="continuous",
+                    help="generational: DecodeEngine.run, one batched "
+                    "prefill and a batch that turns over at the pace of its "
+                    "slowest request (--requests <= --batch)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     ap.add_argument("--seed", type=int, default=0,
@@ -181,24 +196,34 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
         return res
 
     n_req = args.requests if args.requests is not None else args.batch
-    reqs = [Request(prompt=[7 + i, 13 + i], max_new_tokens=args.new_tokens)
-            for i in range(n_req)]
+    plen = 3 if cfg.block_pattern == "zamba2" else 2
+    reqs = [Request(prompt=[7 + i, 13 + i, 19 + i][:plen],
+                    max_new_tokens=args.new_tokens) for i in range(n_req)]
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    sched = ContinuousScheduler(engine, admission_budget=budget,
-                                dynamic_spec_k=args.dynamic_spec_k)
-    for r in reqs:
-        sched.submit(r)
-    sched.run()
+    if args.discipline == "generational":
+        if n_req > args.batch:
+            raise SystemExit("[serve] generational cannot queue: "
+                             "--requests must be <= --batch")
+        engine.run(reqs)
+        steps = max(len(r.out) for r in reqs)
+    else:
+        sched = ContinuousScheduler(engine, admission_budget=budget,
+                                    dynamic_spec_k=args.dynamic_spec_k)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        steps = sched.stats.decode_steps
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n = sum(len(r.out) for r in reqs)
-    print(f"[serve] {n} tokens / {sched.stats.decode_steps} decode steps in "
+    print(f"[serve] {args.discipline}: {n} tokens / {steps} decode steps in "
           f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: "
           f"{_launch_report()}")
-    _print_spec_line(engine, sched.stats, n)
+    if args.discipline == "continuous":
+        _print_spec_line(engine, sched.stats, n)
     _print_prefix_line(engine)
     for i, r in enumerate(reqs):
         print(f"  [{i}] {r.out}")

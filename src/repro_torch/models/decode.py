@@ -1,8 +1,9 @@
-"""Serving-side paths of the attention family (dense, and MoE with an
-expert FFN on every layer): ternary weight packing, the KV ring cache,
-prefill (whole and chunked), single-token decode, the prefix-cache block
-extract and splice, and speculative decoding's batched verify with its KV
-snapshot and rollback.
+"""Serving-side paths of the families the port serves (attention, dense
+and MoE; zamba2's Mamba2 + shared attention; xlstm's mLSTM/sLSTM): ternary
+weight packing, the KV ring and recurrent-state caches, prefill (whole,
+into one slot of a live cache, and chunked for the attention family),
+single-token decode, the prefix-cache block extract and splice, and
+speculative decoding's batched verify with its KV snapshot and rollback.
 
 ``quantize_for_serving`` turns trained parameters into the deployment
 artifact: every ternary projection becomes ``{"packed": uint8 base-3 (1.6
@@ -12,13 +13,17 @@ reference writes; an expert stack keeps one scale per expert.
 time, so a model whose bf16 tree does not fit the card still serves.  Every
 cache writer keeps one ring invariant: position ``p`` lives at slot ``p %
 CL`` (:func:`_ring_slot`); a negative position (a dead scheduler row, a
-padded chunk tail) writes nothing.
+padded chunk tail) writes nothing.  Every cache leaf carries the batch on
+axis 1 (``[layers, B, ...]``), so one request's row splices into a live
+batch leaf by leaf (:func:`splice_rows`).
 
 Unlike the reference's functional updates, the chunk, decode and verify
-steps (and the block splice and the rollback) write their KV and positions
-into the cache tensors in place (the cache dict they return holds the same
-tensors): a serving step
-then never copies the cache.
+steps (and the block splice and the rollback) write their KV, positions
+and recurrent states into the cache tensors in place (the cache dict they
+return holds the same tensors): a serving step then never copies the cache.
+As in the reference, a dead row (position -1) of a decode step drops its KV
+and position writes but still advances its recurrent states; admission's
+splice overwrites them.
 """
 
 from __future__ import annotations
@@ -33,13 +38,15 @@ from repro_torch.core import encoding
 from repro_torch.core.quantization import ternarize
 from repro_torch.kernels.dispatch import (GroupedTernaryWeight, TernaryWeight,
                                           per_position_launches)
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (append_attention, attention,
+from repro_torch.models.layers import (append_attention, attention, ffn,
                                        mask_padded_vocab, moe_capacity,
                                        ring_writes, rms_norm)
 from repro_torch.models.model import (Params, block_ffn, check_supported,
-                                      embed_tokens, init_layer, init_top,
-                                      layer_blocks, lm_head_w, stack_layers)
+                                      embed_tokens, init_layer, init_shared,
+                                      init_top, layer_blocks, layer_stacks,
+                                      lm_head_w, stack_layers)
 
 logger = logging.getLogger(__name__)
 
@@ -108,9 +115,13 @@ def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
     one layer's bf16 weights and its packing temporaries."""
     check_supported(cfg)
     p = init_top(cfg, generator, device)
-    layers = [quantize_for_serving(init_layer(cfg, generator, device), cfg)
-              for _ in range(cfg.n_layers)]
-    p["blocks"] = stack_layers(layers)
+    for name, depth in layer_stacks(cfg).items():
+        p[name] = stack_layers([
+            quantize_for_serving(init_layer(cfg, generator, device, name), cfg)
+            for _ in range(depth)])
+    if cfg.block_pattern == "zamba2":
+        p["shared_attn"] = quantize_for_serving(
+            init_shared(cfg, generator, device), cfg)
     return p
 
 
@@ -134,19 +145,32 @@ def packed_bits_per_weight(p: Params) -> float:
 
 
 def _logical_k(cfg: ModelConfig, path: tuple) -> int:
-    """In-features of the packed projection at ``path`` in a block (the
-    packed rows are padded past it)."""
-    if path[-1] != "wo":
-        return cfg.d_model
-    return cfg.q_dim if path[-2] == "attn" else cfg.d_ff
+    """In-features of the packed projection at ``path`` (its parent and
+    leaf names) in a block: the packed rows are padded past it, and byte 0
+    decodes to trits, so a wrong width would read padding as weights."""
+    parent, name = path[-2], path[-1]
+    d = cfg.d_model
+    if parent == "attn":
+        return cfg.q_dim if name == "wo" else d
+    if parent in ("ffn", "moe", "shared"):
+        return cfg.d_ff if name == "wo" else d
+    if parent == "mixer":                      # Mamba2: wz, wx | wo
+        return ssm.ssm_dims(cfg)[0] if name == "wo" else d
+    if parent == "cell":                       # mLSTM / sLSTM
+        d_in = xlstm.mlstm_dims(cfg)[0]
+        return {"up": d, "wq": d_in, "wk": d_in, "wv": d_in, "down": d_in,
+                "ffn_up": d, "ffn_down": xlstm.slstm_up(cfg)}[name]
+    raise KeyError(f"no logical width for the projection at {path}")
 
 
 def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
-    """The serving tree with ``p["blocks"]`` split into per-layer dicts whose
-    packed leaves carry a bound :class:`TernaryWeight` under ``"tw"``, or,
-    for MoE expert stacks, a :class:`GroupedTernaryWeight` under ``"gw"``,
-    so each kernel's weight encoding is derived once and reused by every
-    step.  The input tree is not modified."""
+    """The serving tree with each layer stack (``p["blocks"]``, or the
+    recurrent families' stacks) split into per-layer dicts whose packed
+    leaves carry a bound :class:`TernaryWeight` under ``"tw"``, or, for MoE
+    expert stacks, a :class:`GroupedTernaryWeight` under ``"gw"``, so each
+    kernel's weight encoding is derived once and reused by every step.
+    zamba2's shared block is bound once, for all its invocations.  The
+    input tree is not modified."""
     def bind(node, path):
         if isinstance(node, dict):
             if "packed" in node:
@@ -159,7 +183,12 @@ def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
             return {key: bind(v, path + (key,)) for key, v in node.items()}
         return node
 
-    return dict(p, blocks=[bind(b, ()) for b in layer_blocks(p)])
+    out = dict(p)
+    for name in layer_stacks(cfg):
+        out[name] = [bind(b, ()) for b in layer_blocks(p, name)]
+    if "shared_attn" in p:
+        out["shared_attn"] = bind(p["shared_attn"], ())
+    return out
 
 
 def layer_matmul_problems(cfg: ModelConfig, batch_size: int,
@@ -168,19 +197,11 @@ def layer_matmul_problems(cfg: ModelConfig, batch_size: int,
     """Role-tagged dense matmul problems ``(role, M, K, N)`` one forward
     step issues through ``dispatch.ternary_matmul``, ``M = batch_size ·
     seq_len``.  ``role`` is the projection's parameter-leaf name; roles that
-    dispatch identically (``wk``/``wv``, ``wi``/``wg``) are listed once.
-
-    The port's copy covers the attention projections and the ``d_ff`` /
-    ``dense_ff`` feed-forwards; the mamba2/zamba2 and xlstm projections come
-    with those families, and asking for them raises.  As in the reference,
-    an MoE config lists its ``d_ff`` problems too, though its expert
-    matmuls dispatch as grouped problems
-    (:func:`layer_grouped_matmul_problems`) and no dense projection of it
-    has those shapes."""
-    if cfg.block_pattern not in ("attn",):
-        raise NotImplementedError(
-            f"layer_matmul_problems: the {cfg.block_pattern!r} block pattern "
-            f"is not ported yet")
+    dispatch identically (``wk``/``wv``, ``wi``/``wg``, ``wz``/``wx``, the
+    mLSTM's ``wq``/``wk``/``wv``) are listed once.  As in the reference, an
+    MoE config lists its ``d_ff`` problems too, though its expert matmuls
+    dispatch as grouped problems (:func:`layer_grouped_matmul_problems`)
+    and no dense projection of it has those shapes."""
     M = batch_size * seq_len
     d = cfg.d_model
     probs: set[tuple[str, int, int, int]] = set()
@@ -189,15 +210,28 @@ def layer_matmul_problems(cfg: ModelConfig, batch_size: int,
         if k and n:
             probs.add((role, M, int(k), int(n)))
 
-    proj("wq", d, cfg.q_dim)
-    proj("wk", d, cfg.kv_dim)
-    proj("wo", cfg.q_dim, d)
+    if cfg.block_pattern in ("attn", "zamba2") or cfg.is_encdec:
+        proj("wq", d, cfg.q_dim)
+        proj("wk", d, cfg.kv_dim)
+        proj("wo", cfg.q_dim, d)
     if cfg.d_ff:
         proj("wi", d, cfg.d_ff)          # wi / wg
         proj("wo", cfg.d_ff, d)
     if cfg.dense_ff:
         proj("wi", d, cfg.dense_ff)
         proj("wo", cfg.dense_ff, d)
+    if cfg.block_pattern in ("zamba2", "mamba2"):
+        d_in = ssm.ssm_dims(cfg)[0]
+        proj("wz", d, d_in)              # wz / wx
+        proj("wo", d_in, d)
+    if cfg.block_pattern == "xlstm":
+        d_in = xlstm.mlstm_dims(cfg)[0]
+        proj("up", d, 2 * d_in)          # mLSTM up
+        proj("wq", d_in, d_in)           # mLSTM wq / wk / wv
+        proj("down", d_in, d)            # mLSTM down
+        up = xlstm.slstm_up(cfg)
+        proj("ffn_up", d, 2 * up)        # sLSTM ffn_up
+        proj("ffn_down", up, d)          # sLSTM ffn_down
     return sorted(probs)
 
 
@@ -249,17 +283,57 @@ def cache_len(cfg: ModelConfig, s_max: int) -> int:
 
 def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
                device: str | torch.device = "cuda") -> dict:
-    if cfg.block_pattern != "attn" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"the port's cache covers the attention family, not "
-            f"{cfg.block_pattern}")
+    """A fresh cache of ``B`` rows, every leaf ``[layers, B, ...]``: the KV
+    ring and its slot positions (-1 = empty) for each attention layer
+    (zamba2: one per shared-block invocation), zamba2's f32 SSM states and
+    conv windows, xlstm's mLSTM ``(C, n, m)`` and sLSTM ``(c, n, h, m)``
+    states at the reference's initial values."""
     CL = cache_len(cfg, s_max)
-    shape = (cfg.n_layers, B, CL, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            # per-row slot positions (-1 = empty slot)
-            "pos": torch.full((cfg.n_layers, B, CL), -1, dtype=torch.int32,
-                              device=device)}
+    f32 = torch.float32
+
+    def kv(n):
+        shape = (n, B, CL, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                # per-row slot positions (-1 = empty slot)
+                "pos": torch.full((n, B, CL), -1, dtype=torch.int32,
+                                  device=device)}
+
+    if cfg.block_pattern == "attn" and not cfg.is_encdec:
+        return kv(cfg.n_layers)
+    if cfg.block_pattern == "zamba2":
+        d_in, H, N = ssm.ssm_dims(cfg)
+        c = kv(cfg.n_layers // cfg.attn_every)
+        c["ssm"] = torch.zeros((cfg.n_layers, B, H, N, cfg.ssm_head_dim),
+                               dtype=f32, device=device)
+        c["conv"] = torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1,
+                                 d_in + 2 * N), dtype=dtype, device=device)
+        return c
+    if cfg.block_pattern == "xlstm":
+        _, H, dk = xlstm.mlstm_dims(cfg)
+        half, D = cfg.n_layers // 2, cfg.d_model
+
+        def full(shape, value):
+            return torch.full(shape, value, dtype=f32, device=device)
+
+        return {"mC": full((half, B, H, dk, dk), 0.0),
+                "mn": full((half, B, H, dk), 0.0),
+                "mm": full((half, B, H), -1e30),
+                "sc": full((half, B, D), 0.0),
+                "sn": full((half, B, D), 0.0) + 1e-6,
+                "sh": full((half, B, D), 0.0),
+                "sm": full((half, B, D), -1e30)}
+    raise NotImplementedError(
+        f"the port's cache covers the attention, zamba2 and xlstm families, "
+        f"not {cfg.block_pattern} (encoder layers {cfg.enc_layers})")
+
+
+def splice_rows(cache: dict, slot: int, one: dict) -> dict:
+    """Write the single-row cache ``one`` into batch row ``slot`` of
+    ``cache``, every leaf, in place; the other rows are untouched."""
+    for name, leaf in cache.items():
+        leaf[:, slot] = one[name][:, 0].to(leaf.dtype)
+    return cache
 
 
 def _ring_slot(cfg: ModelConfig, CL: int, index: torch.Tensor) -> torch.Tensor:
@@ -313,6 +387,25 @@ def _final_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
                              cfg.vocab_size)
 
 
+def check_prompt_len(cfg: ModelConfig, S: int) -> None:
+    """zamba2's prefill hands each Mamba2 layer's last ``ssm_conv - 1``
+    conv inputs to decode, so it needs at least that many tokens (the
+    reference fails below it too, at its conv-state reshape)."""
+    if cfg.block_pattern == "zamba2" and S < cfg.ssm_conv - 1:
+        raise ValueError(
+            f"{cfg.name}: a prompt of {S} tokens is shorter than the "
+            f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens of conv state a "
+            f"Mamba2 prefill leaves for decode")
+
+
+def _shared_block(shared: Params, x: torch.Tensor, cfg: ModelConfig, **kw):
+    """zamba2's shared attention+FFN block: ``(x, kv)`` with ``kv`` the
+    attention's ``(k, v)`` (prefill) or its written cache (decode)."""
+    a, kv = attention(shared["attn"], rms_norm(shared["ln1"], x), cfg, **kw)
+    x = x + a
+    return x + ffn(shared["ffn"], rms_norm(shared["ln2"], x), cfg), kv
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
     """Run the full prompt once; return (cache, last-position logits)."""
     tokens = batch["tokens"]
@@ -323,25 +416,70 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
             f"prompt length {S} exceeds cache length {CL} (s_max) for a "
             f"non-windowed config; raise s_max/max_len instead of relying on "
             f"silent truncation")
+    check_prompt_len(cfg, S)
     dev = tokens.device
     cache = init_cache(cfg, B, CL if cfg.window else s_max, device=dev)
     positions = torch.arange(S, device=dev)
     x = embed_tokens(p, cfg, tokens)
     ks, vs = [], []
-    for blk in layer_blocks(p):
-        hn = rms_norm(blk["ln1"], x, offset=cfg.rmsnorm_offset)
-        a, (k, v) = attention(blk["attn"], hn, cfg, positions=positions,
-                              window=cfg.window, return_kv=True)
-        x = x + a
-        x = x + block_ffn(blk, rms_norm(blk["ln2"], x,
-                                        offset=cfg.rmsnorm_offset), cfg)[0]
-        ks.append(k)
-        vs.append(v)
+    if cfg.block_pattern == "attn":
+        for blk in layer_blocks(p):
+            hn = rms_norm(blk["ln1"], x, offset=cfg.rmsnorm_offset)
+            a, (k, v) = attention(blk["attn"], hn, cfg, positions=positions,
+                                  window=cfg.window, return_kv=True)
+            x = x + a
+            x = x + block_ffn(blk, rms_norm(blk["ln2"], x,
+                                            offset=cfg.rmsnorm_offset), cfg)[0]
+            ks.append(k)
+            vs.append(v)
+    elif cfg.block_pattern == "zamba2":
+        g = cfg.attn_every
+        states, convs = [], []
+        for i, blk in enumerate(layer_blocks(p, "mamba_blocks")):
+            y, (st, cv) = ssm.mamba2_block(blk["mixer"],
+                                           rms_norm(blk["ln"], x), cfg)
+            x = x + y
+            states.append(st)
+            convs.append(cv)
+            if (i + 1) % g == 0:
+                x, (k, v) = _shared_block(p["shared_attn"], x, cfg,
+                                          positions=positions,
+                                          window=cfg.window, return_kv=True)
+                ks.append(k)
+                vs.append(v)
+        cache["ssm"] = torch.stack(states)
+        cache["conv"] = torch.stack(convs).to(cache["conv"].dtype)
+    else:  # xlstm
+        names = ("mC", "mn", "mm", "sc", "sn", "sh", "sm")
+        states = {n: [] for n in names}
+        for mblk, sblk in zip(layer_blocks(p, "mlstm_blocks"),
+                              layer_blocks(p, "slstm_blocks")):
+            y, mst = xlstm.mlstm_block(mblk["cell"], rms_norm(mblk["ln"], x),
+                                       cfg)
+            x = x + y
+            y, sst = xlstm.slstm_block(sblk["cell"], rms_norm(sblk["ln"], x),
+                                       cfg)
+            x = x + y
+            for n, t in zip(names, mst + sst):
+                states[n].append(t)
+        cache.update({n: torch.stack(t) for n, t in states.items()})
+    if ks:
+        cache["k"] = _pad_kv_to(torch.stack(ks), CL).to(cache["k"].dtype)
+        cache["v"] = _pad_kv_to(torch.stack(vs), CL).to(cache["v"].dtype)
+        cache["pos"] = _prefill_positions(S, CL, dev).expand_as(
+            cache["pos"]).clone()
     x = rms_norm(p["final_norm"], x, offset=cfg.rmsnorm_offset)
-    cache["k"] = _pad_kv_to(torch.stack(ks), CL).to(cache["k"].dtype)
-    cache["v"] = _pad_kv_to(torch.stack(vs), CL).to(cache["v"].dtype)
-    cache["pos"] = _prefill_positions(S, CL, dev).expand_as(cache["pos"]).clone()
     return cache, _final_logits(p, cfg, x[:, -1])
+
+
+def prefill_into_slot(p: Params, cfg: ModelConfig, cache: dict, batch: dict,
+                      slot: int, s_max: int):
+    """Prefill one request (``batch["tokens"]`` [1, S]) and splice its KV
+    and states into batch row ``slot`` of the live ``cache`` in place,
+    every leaf (:func:`splice_rows`), leaving every other row untouched.
+    Returns ``(cache, logits [V])``, the last prompt position's logits."""
+    cache1, logits = prefill(p, cfg, batch, s_max=s_max)
+    return splice_rows(cache, slot, cache1), logits[0]
 
 
 def supports_chunked_prefill(p: Params, cfg: ModelConfig) -> bool:
@@ -577,6 +715,32 @@ def prefill_chunks_of(plen: int, chunk: int) -> list[tuple[int, int]]:
     return [(s, min(chunk, plen - s)) for s in range(0, plen, chunk)]
 
 
+def prefill_chunked(p: Params, cfg: ModelConfig, batch: dict, s_max: int,
+                    chunk: int):
+    """Whole-prompt prefill built from :func:`prefill_chunk` calls: the
+    same cache and last-position logits as :func:`prefill` (up to the
+    attention's partitioning), for the configs the chunked path covers.
+    Returns (cache, logits [B, V])."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    CL = cache_len(cfg, s_max)
+    if not cfg.window and S > CL:
+        raise ValueError(
+            f"prompt length {S} exceeds cache length {CL} (s_max) for a "
+            f"non-windowed config")
+    dev = tokens.device
+    cache = init_cache(cfg, B, CL if cfg.window else s_max, device=dev)
+    logits = None
+    j = torch.arange(chunk, device=dev)
+    for start, valid in prefill_chunks_of(S, chunk):
+        ctoks = torch.nn.functional.pad(tokens[:, start:start + valid],
+                                        (0, chunk - valid), value=1)
+        cpos = torch.where(j < valid, start + j, -1).to(torch.int32)
+        cache, logits = prefill_chunk(p, cfg, cache, ctoks,
+                                      cpos.expand(B, chunk), take=valid - 1)
+    return cache, logits
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -586,29 +750,72 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 index: torch.Tensor):
     """One decode step.  tokens: [B]; index: int32 [B] per-slot positions
     (a scalar broadcasts).  Each row attends, ropes and writes at its own
-    position; a row at ``-1`` (dead) writes nothing.
+    position; a row at ``-1`` (dead) writes no KV and no position, though
+    its recurrent states advance, as in the reference.
     Returns (logits [B, V], cache)."""
     B = tokens.shape[0]
     index = torch.as_tensor(index, dtype=torch.int32, device=tokens.device)
     if index.ndim == 0:
         index = index.expand(B)
-    CL = cache["pos"].shape[-1]
+    CL = cache["pos"].shape[-1] if "pos" in cache else 0
     slot = _ring_slot(cfg, CL, index)
     positions = index[:, None]
     h = embed_tokens(p, cfg, tokens[:, None])
-    old_pos = cache["pos"][0].clone()
-    ks, vs = [], []
-    for i, blk in enumerate(layer_blocks(p)):
-        hn = rms_norm(blk["ln1"], h, offset=cfg.rmsnorm_offset)
-        a, (k, v) = append_attention(blk["attn"], hn, cfg, positions=positions,
-                                     cache_k=cache["k"][i], cache_v=cache["v"][i],
-                                     k_positions=old_pos, window=cfg.window)
-        h = h + a
-        h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
-                                        offset=cfg.rmsnorm_offset), cfg)[0]
-        ks.append(k)
-        vs.append(v)
-    cache = _scatter_rows(cache, slot[:, None], positions, torch.stack(ks),
-                          torch.stack(vs))
+    if cfg.block_pattern == "attn":
+        old_pos = cache["pos"][0].clone()
+        ks, vs = [], []
+        for i, blk in enumerate(layer_blocks(p)):
+            hn = rms_norm(blk["ln1"], h, offset=cfg.rmsnorm_offset)
+            a, (k, v) = append_attention(blk["attn"], hn, cfg,
+                                         positions=positions,
+                                         cache_k=cache["k"][i],
+                                         cache_v=cache["v"][i],
+                                         k_positions=old_pos,
+                                         window=cfg.window)
+            h = h + a
+            h = h + block_ffn(blk, rms_norm(blk["ln2"], h,
+                                            offset=cfg.rmsnorm_offset), cfg)[0]
+            ks.append(k)
+            vs.append(v)
+        cache = _scatter_rows(cache, slot[:, None], positions,
+                              torch.stack(ks), torch.stack(vs))
+    elif cfg.block_pattern == "zamba2":
+        # the positions go in first: every shared-block call attends the
+        # ring with this step's key in it
+        rows = torch.arange(B, device=h.device)
+        live = slot < CL
+        at = slot.clamp_max(CL - 1).long()
+        pos = cache["pos"]
+        pos[:, rows, at] = torch.where(live, index, pos[:, rows, at])
+        kpos = pos[0]
+        g = cfg.attn_every
+        for i, blk in enumerate(layer_blocks(p, "mamba_blocks")):
+            y, (st, cv) = ssm.mamba2_block(
+                blk["mixer"], rms_norm(blk["ln"], h), cfg,
+                state=cache["ssm"][i], conv_state=cache["conv"][i])
+            h = h + y
+            cache["ssm"][i] = st
+            cache["conv"][i] = cv.to(cache["conv"].dtype)
+            if (i + 1) % g == 0:
+                j = i // g
+                h, _ = _shared_block(p["shared_attn"], h, cfg,
+                                     positions=positions, k_positions=kpos,
+                                     window=cfg.window,
+                                     cache=(cache["k"][j], cache["v"][j]),
+                                     cache_index=slot)
+    else:  # xlstm
+        for i, (mblk, sblk) in enumerate(zip(layer_blocks(p, "mlstm_blocks"),
+                                             layer_blocks(p, "slstm_blocks"))):
+            mst = tuple(cache[n][i] for n in ("mC", "mn", "mm"))
+            y, mst = xlstm.mlstm_block(mblk["cell"], rms_norm(mblk["ln"], h),
+                                       cfg, state=mst, decode=True)
+            h = h + y
+            sst = tuple(cache[n][i] for n in ("sc", "sn", "sh", "sm"))
+            y, sst = xlstm.slstm_block(sblk["cell"], rms_norm(sblk["ln"], h),
+                                       cfg, state=sst)
+            h = h + y
+            for n, t in zip(("mC", "mn", "mm", "sc", "sn", "sh", "sm"),
+                            mst + sst):
+                cache[n][i] = t
     h = rms_norm(p["final_norm"], h, offset=cfg.rmsnorm_offset)
     return _final_logits(p, cfg, h[:, 0]), cache

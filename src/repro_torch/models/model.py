@@ -1,12 +1,19 @@
-"""Top-level model API of the attention family (dense, and MoE with an
-expert FFN on every layer): init and the forward trunk.
+"""Top-level model API: init and the forward trunk of the families the
+port serves.
+
+  * ``attn``: dense and MoE (an expert FFN on every layer) decoder-only LMs;
+  * ``zamba2``: a Mamba2 backbone with one shared attention block applied
+    after every ``attn_every`` Mamba2 layers;
+  * ``xlstm``: alternating mLSTM / sLSTM blocks.
 
 Parameters keep the reference layout: a nested dict whose per-layer leaves
-are stacked on a leading layer axis (``p["blocks"]``), so trees convert
-leaf for leaf (``repro_torch.convert``).  The reference's scan over that
-axis is a loop over the layers here; ``p["blocks"]`` may also be a list of
-per-layer dicts (the bound serving form, ``decode.bind_serving_weights``).
-An MoE block carries ``"moe"`` in place of ``"ffn"``.
+are stacked on a leading layer axis (``p["blocks"]``; zamba2's
+``p["mamba_blocks"]`` beside the unstacked ``p["shared_attn"]``; xlstm's
+``p["mlstm_blocks"]`` and ``p["slstm_blocks"]``), so trees convert leaf for
+leaf (``repro_torch.convert``).  The reference's scan over that axis is a
+loop over the layers here; a stack may also be a list of per-layer dicts
+(the bound serving form, ``decode.bind_serving_weights``).  An MoE block
+carries ``"moe"`` in place of ``"ffn"``.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention, ffn, init_moe, moe_ffn,
                                        rms_norm)
@@ -30,16 +38,28 @@ def _normal(g: torch.Generator, shape, scale: float, device) -> torch.Tensor:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configurations the port does not build yet."""
-    if cfg.block_pattern != "attn" or cfg.is_encdec:
+    if cfg.block_pattern not in ("attn", "zamba2", "xlstm") or \
+            cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"the port serves the attention family; {cfg.name} "
-            f"(block_pattern={cfg.block_pattern}) is not ported yet")
+            f"the port serves the attention, zamba2 and xlstm families; "
+            f"{cfg.name} (block_pattern={cfg.block_pattern}, frontend="
+            f"{cfg.frontend}, encoder layers {cfg.enc_layers}) is not ported "
+            f"yet")
     if cfg.n_experts and cfg.moe_every > 1:
         raise NotImplementedError(
             f"{cfg.name} interleaves dense and MoE layers (moe_every="
-            f"{cfg.moe_every}, the dense_blocks stack), which needs "
-            f"whole-prompt admission: not ported yet (a later slice brings "
-            f"the dense_blocks interleave with prefill_into_slot)")
+            f"{cfg.moe_every}, the dense_blocks stack): not ported yet (a "
+            f"later slice brings the dense_blocks interleave)")
+
+
+def layer_stacks(cfg: ModelConfig) -> dict[str, int]:
+    """The stacked entries of ``cfg``'s parameter tree and their depths."""
+    if cfg.block_pattern == "zamba2":
+        return {"mamba_blocks": cfg.n_layers}
+    if cfg.block_pattern == "xlstm":
+        half = cfg.n_layers // 2
+        return {"mlstm_blocks": half, "slstm_blocks": half}
+    return {"blocks": cfg.n_layers}
 
 
 def init_top(cfg: ModelConfig, generator: torch.Generator,
@@ -56,11 +76,12 @@ def init_top(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def init_layer(cfg: ModelConfig, generator: torch.Generator,
-               device: str | torch.device = "cuda") -> Params:
-    """One layer's block parameters (no layer axis), drawn from
-    ``generator`` in a fixed order: attention, then the FFN or the MoE."""
-    g, dev = generator, torch.device(device)
+def _ones(n: int, dev) -> Params:
+    return {"g": torch.ones((n,), dtype=torch.bfloat16, device=dev)}
+
+
+def _init_attn_block(cfg: ModelConfig, g: torch.Generator, dev) -> Params:
+    """An attention block: attention, then the FFN or the MoE."""
     D = cfg.d_model
 
     def lin(d_in, d_out, bias=False):
@@ -69,16 +90,13 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator,
             leaf["b"] = torch.zeros((d_out,), dtype=torch.bfloat16, device=dev)
         return leaf
 
-    def ones(n):
-        return {"g": torch.ones((n,), dtype=torch.bfloat16, device=dev)}
-
     attn = {"wq": lin(D, cfg.q_dim, cfg.qkv_bias),
             "wk": lin(D, cfg.kv_dim, cfg.qkv_bias),
             "wv": lin(D, cfg.kv_dim, cfg.qkv_bias), "wo": lin(cfg.q_dim, D)}
     if cfg.qk_norm:
-        attn["q_norm"] = ones(cfg.head_dim)
-        attn["k_norm"] = ones(cfg.head_dim)
-    blk = {"ln1": ones(D), "attn": attn, "ln2": ones(D)}
+        attn["q_norm"] = _ones(cfg.head_dim, dev)
+        attn["k_norm"] = _ones(cfg.head_dim, dev)
+    blk = {"ln1": _ones(D, dev), "attn": attn, "ln2": _ones(D, dev)}
     if cfg.n_experts:
         blk["moe"] = init_moe(g, cfg, dev)
     else:
@@ -86,6 +104,33 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator,
         if cfg.ffn_gated:
             blk["ffn"]["wg"] = lin(D, cfg.d_ff)
     return blk
+
+
+def init_layer(cfg: ModelConfig, generator: torch.Generator,
+               device: str | torch.device = "cuda",
+               stack: str = "blocks") -> Params:
+    """One layer of the stack ``stack`` (no layer axis), drawn from
+    ``generator`` in a fixed order: an attention block (attention, then the
+    FFN or the MoE), a Mamba2 layer (its norm, then its mixer) or an
+    mLSTM/sLSTM layer (its norm, then its cell)."""
+    g, dev = generator, torch.device(device)
+    if stack == "blocks":
+        return _init_attn_block(cfg, g, dev)
+    ln = _ones(cfg.d_model, dev)
+    if stack == "mamba_blocks":
+        return {"ln": ln, "mixer": ssm.init_mamba2(g, cfg, dev)}
+    if stack == "mlstm_blocks":
+        return {"ln": ln, "cell": xlstm.init_mlstm(g, cfg, dev)}
+    if stack == "slstm_blocks":
+        return {"ln": ln, "cell": xlstm.init_slstm(g, cfg, dev)}
+    raise KeyError(stack)
+
+
+def init_shared(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda") -> Params:
+    """zamba2's shared attention+FFN block (one, unstacked), drawn after
+    the Mamba2 stack as the reference draws it."""
+    return _init_attn_block(cfg, generator, torch.device(device))
 
 
 def stack_layers(layers: list[Params]) -> Params:
@@ -99,22 +144,25 @@ def stack_layers(layers: list[Params]) -> Params:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> Params:
-    """Random attention-family parameters, drawn from ``generator`` directly
-    on ``device`` (the generator must live on that device), in the
-    reference's shapes, dtypes and scales: :func:`init_top`, then
-    :func:`init_layer` for each layer, stacked.
+    """Random parameters, drawn from ``generator`` directly on ``device``
+    (the generator must live on that device), in the reference's shapes,
+    dtypes and scales: :func:`init_top`, then :func:`init_layer` for each
+    layer of each stack, stacked, then zamba2's :func:`init_shared`.
     ``decode.init_serving_params`` makes the same draws layer by layer."""
     check_supported(cfg)
     p = init_top(cfg, generator, device)
-    p["blocks"] = stack_layers([init_layer(cfg, generator, device)
-                                for _ in range(cfg.n_layers)])
+    for name, depth in layer_stacks(cfg).items():
+        p[name] = stack_layers([init_layer(cfg, generator, device, name)
+                                for _ in range(depth)])
+    if cfg.block_pattern == "zamba2":
+        p["shared_attn"] = init_shared(cfg, generator, device)
     return p
 
 
-def layer_blocks(p: Params) -> list[Params]:
-    """Per-layer block dicts: the bound list as is, or views into the stacked
-    leaves."""
-    blocks = p["blocks"]
+def layer_blocks(p: Params, stack: str = "blocks") -> list[Params]:
+    """Per-layer dicts of the stack ``stack``: the bound list as is, or
+    views into the stacked leaves."""
+    blocks = p[stack]
     if isinstance(blocks, list):
         return blocks
 
@@ -123,8 +171,10 @@ def layer_blocks(p: Params) -> list[Params]:
             return {k: index(v, i) for k, v in node.items()}
         return node[i]
 
-    n = len(blocks["ln1"]["g"])
-    return [index(blocks, i) for i in range(n)]
+    node = blocks
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return [index(blocks, i) for i in range(node.shape[0])]
 
 
 def lm_head_w(p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -168,7 +218,14 @@ def _attn_trunk(p: Params, cfg: ModelConfig, h: torch.Tensor, positions,
 
 def forward(p: Params, cfg: ModelConfig, batch: dict, *,
             window: int | None = None):
-    """Training/prefill trunk → (hidden [B, S, D], aux_loss)."""
+    """Training/prefill trunk of the attention family → (hidden [B, S, D],
+    aux_loss).  The recurrent families run through ``decode.prefill`` and
+    ``decode.decode_step`` only (their training trunk is not ported)."""
+    if cfg.block_pattern != "attn":
+        raise NotImplementedError(
+            f"forward() covers the attention family; {cfg.name} "
+            f"(block_pattern={cfg.block_pattern}) serves through "
+            f"decode.prefill and decode_step")
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = cfg.window if window is None else window

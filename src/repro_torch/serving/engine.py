@@ -7,7 +7,12 @@ continuous-batching protocol that
 :class:`repro_torch.serving.scheduler.ContinuousScheduler` drives: chunked,
 length-bucketed admission into a private single-row cache spliced into the
 live batch on the last chunk, and a fused sample → mask → decode step with
-stop and budget masking on the device.
+stop and budget masking on the device.  Architectures the chunked path
+does not cover (zamba2's and xlstm's recurrent states) admit whole: one
+single-row ``prefill`` of the prompt, committed through the same splice.
+:meth:`DecodeEngine.run` is the generational baseline: one batched prefill
+of left-padded prompts, the batch turning over at the pace of its slowest
+request.
 
 :meth:`DecodeEngine.autotune_shapes` measures every eligible kernel at the
 engine's decode and admission-chunk shapes, dense and grouped (MoE expert
@@ -29,13 +34,13 @@ verify_step`, the accepted prefix is kept and the rest is rolled back on
 both KV rings (:func:`~repro_torch.models.decode.rollback_kv_window`).
 Every emitted token is the target's own canonical greedy choice.
 
-Mesh sharding and the generational ``run()`` path are not ported yet; the
-constructor rejects ``mesh`` and ``run()`` raises.
+Mesh sharding is not ported yet; the constructor rejects ``mesh``.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -46,15 +51,19 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import autotune, get_autotune_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (bind_serving_weights, cache_len,
-                                       decode_step, extract_kv_blocks,
-                                       init_cache,
+                                       check_prompt_len, decode_step,
+                                       extract_kv_blocks, init_cache,
                                        layer_grouped_matmul_problems,
-                                       layer_matmul_problems,
+                                       layer_matmul_problems, prefill,
                                        prefill_chunks_of, rollback_kv_window,
                                        snapshot_kv_window, splice_kv_blocks,
-                                       supports_chunked_prefill, verify_step)
+                                       splice_rows, supports_chunked_prefill,
+                                       verify_step)
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
+from repro_torch.models.model import check_supported
 from repro_torch.serving.prefix_cache import PrefixBlockStore
+
+logger = logging.getLogger(__name__)
 
 
 def serving_matmul_problems(cfg: ModelConfig, batch_size: int,
@@ -144,10 +153,15 @@ class DecodeEngine:
         projection ("auto" | "prior" | "fixed:<kernel>").  ``prefill_chunk``
         sets the admission chunk (clamped to the ring on windowed configs).
 
+        Configs without chunked prefill (``supports_chunked_prefill``:
+        zamba2, xlstm) admit each request whole (``chunked_admission`` is
+        False).
+
         ``prefix_cache`` turns on hashed shared-prefix KV reuse: pass True
         (a fresh :class:`PrefixBlockStore` with a ``prefix_cache_mb`` byte
         budget) or a store instance to share across engines of the same
-        geometry.  Admission then consults the store per prompt block (block
+        geometry; on a whole-prompt architecture it logs a warning and
+        stays off.  Admission then consults the store per prompt block (block
         = one ``prefill_chunk``), splices cached KV slabs instead of
         recomputing hit blocks, and publishes each freshly computed full
         block; on windowed configs reuse depth is capped at the ring length.
@@ -183,10 +197,9 @@ class DecodeEngine:
                               sampler or SamplerConfig(), spec_k)
             self.spec_k = spec_k
             self.draft_cfg = draft_cfg
-        if not supports_chunked_prefill(params, cfg):
-            raise NotImplementedError(
-                f"{cfg.name} needs whole-prompt admission, which is not "
-                f"ported yet")
+        check_supported(cfg)
+        #: False: each request admits through one whole-prompt prefill
+        self.chunked_admission = supports_chunked_prefill(params, cfg)
         self.cfg = cfg
         self.B = batch_size
         self.batch_size = batch_size  # ScheduleBackend protocol name
@@ -247,6 +260,12 @@ class DecodeEngine:
         # identity checks, not truthiness: an EMPTY store instance is falsy
         # (len() == 0) but must still be wired in and validated
         if prefix_cache is None or prefix_cache is False:
+            return None
+        if not self.chunked_admission:
+            logger.warning(
+                "prefix cache requested but %s admits through whole-prompt "
+                "fallback (no chunked prefill); prefix reuse disabled",
+                self.cfg.name)
             return None
         c = self.cfg
         ns = (f"{c.name}:{c.n_layers}:{c.n_kv_heads}:{c.head_dim}:"
@@ -334,10 +353,54 @@ class DecodeEngine:
         return results
 
     def run(self, requests: list[Request]) -> list[Request]:
-        """Generational batching is not ported yet; use :meth:`serve`."""
-        raise NotImplementedError(
-            "DecodeEngine.run (generational batching) is not ported yet; "
-            "serve() runs the continuous-batching path")
+        """Run a batch of at most ``batch_size`` requests to completion
+        (generational batching): the prompts, left-padded with
+        ``PAD_TOKEN`` to the longest, prefill in one batched ``prefill``,
+        every row then decodes at one shared position, and the batch turns
+        over at the pace of its slowest request.  Use :meth:`serve` for
+        continuous batching.  Returns ``requests``."""
+        if len(requests) > self.B:
+            raise ValueError(
+                f"got {len(requests)} requests for batch_size {self.B}; "
+                "generational run() cannot queue — use serve() instead")
+        reqs = list(requests) + [Request(prompt=[PAD_TOKEN], max_new_tokens=0)
+                                 for _ in range(self.B - len(requests))]
+        plen = max(len(r.prompt) for r in reqs)
+        max_new = max(r.max_new_tokens for r in reqs)
+        if not self.cfg.window and plen + max_new > self.max_len:
+            # out-of-range positions would silently drop their KV writes
+            raise ValueError(
+                f"prompt ({plen}) + max_new_tokens ({max_new}) exceeds "
+                f"engine max_len {self.max_len}")
+        toks = np.full((self.B, plen), PAD_TOKEN, np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+        cache, logits = prefill(self.params, self.cfg,
+                                {"tokens": torch.from_numpy(toks).to(
+                                    self.device)}, s_max=self.max_len)
+        cur = plen - 1
+        for t in range(max_new):
+            tokens = sample_tokens(logits, self.sampler, self._gen)
+            arr = tokens.cpu().numpy()
+            for i, r in enumerate(reqs):
+                if r.done or t >= r.max_new_tokens:
+                    continue
+                tok = int(arr[i])
+                r.out.append(tok)
+                if r.on_token is not None:
+                    r.on_token(r, tok)
+                if r.stop_token is not None and tok == r.stop_token:
+                    r.done = True
+            if all(r.done or len(r.out) >= r.max_new_tokens for r in reqs):
+                break
+            cur += 1
+            logits, cache = decode_step(self.params, self.cfg, cache, tokens,
+                                        cur)
+        for r in requests:
+            if not r.done and len(r.out) >= r.max_new_tokens:
+                # budget exhausted: finished, as serve()'s alive mask has it
+                r.done = True
+        return requests
 
     # ------------------------------------------------------------------
     # continuous batching (ScheduleBackend protocol)
@@ -365,6 +428,7 @@ class DecodeEngine:
         plen = len(request.prompt)
         if plen < 1:
             raise ValueError("empty prompt")
+        check_prompt_len(self.cfg, plen)
         if not self.cfg.window and plen + request.max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({plen}) + max_new_tokens ({request.max_new_tokens}) "
@@ -382,8 +446,13 @@ class DecodeEngine:
         and chunked prefill resumes at the first miss.  The final chunk is
         always computed: the slot needs its last-position logits, which no
         KV slab carries.  Hashing runs on the host from the prompt list;
-        the slabs and splices stay on the device."""
+        the slabs and splices stay on the device.
+
+        A whole-prompt architecture (``chunked_admission`` False) admits in
+        this call (:meth:`_admit_whole`) and returns ``(state, None)``."""
         plen = self._validate_request(request)
+        if not self.chunked_admission:
+            return self._admit_whole(state, slot, request), None
         C, dev = self.prefill_chunk, self.device
         prompt = np.asarray(request.prompt, np.int64)
         chunks = []
@@ -461,7 +530,18 @@ class DecodeEngine:
             pending["i"] += 1
         if pending["i"] < n or pending["di"] < n:
             return state, pending
-        return self._commit(state, pending), None
+        return self._commit(state, pending["slot"], pending["request"],
+                            pending["cache"], pending["logits1"][0],
+                            pending["dcache"]), None
+
+    def _admit_whole(self, state: dict, slot: int, request: Request) -> dict:
+        """Whole-prompt admission: one single-row :func:`prefill` of the
+        prompt, committed through the same splice as the chunked path."""
+        toks = torch.tensor([request.prompt], dtype=torch.int64,
+                            device=self.device)
+        cache1, logits = prefill(self.params, self.cfg, {"tokens": toks},
+                                 s_max=self.max_len)
+        return self._commit(state, slot, request, cache1, logits[0])
 
     def prefix_match_len(self, request: Request) -> int:
         """Cached-prefix depth for ``request`` in tokens: how much prefill
@@ -479,15 +559,15 @@ class DecodeEngine:
                                                 n_blocks=n_reusable)
         return self.prefix_store.match(hashes, peek=True) * self.prefill_chunk
 
-    def _commit(self, state: dict, pending: dict) -> dict:
+    def _commit(self, state: dict, slot: int, request: Request, cache1: dict,
+                logits1: torch.Tensor, dcache1: dict | None = None) -> dict:
         """Splice a prefilled single-row cache (and the draft's, with a
-        draft) into batch row ``slot`` and arm the slot (in place)."""
-        slot, request = pending["slot"], pending["request"]
-        for name in ("k", "v", "pos"):
-            state["cache"][name][:, slot] = pending["cache"][name][:, 0]
-            if self.spec_k:
-                state["dcache"][name][:, slot] = pending["dcache"][name][:, 0]
-        state["logits"][slot] = pending["logits1"][0]
+        draft) into batch row ``slot``, every leaf, KV and recurrent state
+        alike, and arm the slot (in place)."""
+        splice_rows(state["cache"], slot, cache1)
+        if self.spec_k:
+            splice_rows(state["dcache"], slot, dcache1)
+        state["logits"][slot] = logits1
         state["live"][slot] = True
         state["index"][slot] = len(request.prompt) - 1
         state["remaining"][slot] = request.max_new_tokens

@@ -1237,3 +1237,132 @@ def test_spec_streams_equal_non_spec_on_cuda(cuda, policy):
         assert tdispatch.launch_counts()[policy.split(":")[1]] > 0
         streams[spec] = [r.out for r in reqs]
     assert streams[True] == streams[False]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: the kernels at zamba2's shapes and whole-prompt
+# row counts, prefill against token-by-token decode, streams vs the CPU
+# ---------------------------------------------------------------------------
+
+#: zamba2-2.7b's projections (O, K): Mamba2 wz/wx, wo; the shared block's
+#: attention, FFN up and down
+ZAMBA_OK = [(5120, 2560), (2560, 5120), (2560, 2560), (10240, 2560),
+            (2560, 10240)]
+
+
+@pytest.mark.parametrize("O,K", ZAMBA_OK)
+@pytest.mark.parametrize("B", [3, 4, 64, 120])
+def test_lut_gather_at_zamba2_shapes_and_whole_prompt_rows(cuda, B, O, K):
+    """Whole-prompt admission launches ``lut_gather`` at the prompt's row
+    count (3 to 120) on zamba2's widths (K up to 10240), as served: x of
+    the logical width, the weight's keys view."""
+    x, w = _case(70 + B, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    keys = tdispatch.TernaryWeight.from_ternary(
+        torch.from_numpy(w).to(cuda)).keys()
+    n0 = tlut.lut_matmul.launches
+    got = tlut.lut_matmul(xt, keys, 3)
+    assert tlut.lut_matmul.launches == n0 + 1
+    want = tlut.lut_matmul_torch(xt, keys, 3)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("O,K", ZAMBA_OK)
+@pytest.mark.parametrize("B,dtype", [(1, "bfloat16"), (2, "bfloat16"),
+                                     (4, "int8")])
+def test_tl2_at_zamba2_shapes(cuda, B, dtype, O, K):
+    x, w = _case(80 + B, B, O, K, int8=dtype == "int8")
+    xt = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    words = _served_words(w, cuda)
+    _tl2_held(_tl2_once(xt, words, K), xt, w, words, K)
+
+
+def _recurrent_served(cuda, arch):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.decode import init_serving_params
+
+    kw = {"n_layers": 4, "attn_every": 2} if arch == "zamba2-2.7b" else {}
+    cfg = get_smoke_config(arch, **kw)
+    return cfg, init_serving_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+
+
+@pytest.mark.parametrize("arch,S", [("zamba2-2.7b", 20),
+                                    ("xlstm-125m", 70)])
+def test_prefill_equals_token_by_token_decode_on_cuda(cuda, tmp_path,
+                                                      monkeypatch, arch, S):
+    """On the prior a prompt's prefill (``lut_gather`` at M = S) and the
+    same prompt fed one token at a time through ``decode_step`` (``tl2``
+    at M = 1) reach the same logits and states: the kernels sum in other
+    orders, so within 2^-4 on the logits and 2^-4 of each state leaf's
+    largest magnitude."""
+    from repro_torch.models.decode import (bind_serving_weights, decode_step,
+                                           init_cache, prefill)
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    tdispatch.reset_autotune_cache()
+    cfg, served = _recurrent_served(cuda, arch)
+    p = bind_serving_weights(served, cfg)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        2, cfg.vocab_size, size=(1, S))).to(cuda)
+    tdispatch.reset_launch_counts()
+    cw, lw = prefill(p, cfg, {"tokens": prompt}, 128)
+    assert tdispatch.launch_counts()["lut_gather"] > 0
+    cs = init_cache(cfg, 1, 128, device=cuda)
+    for i in range(S):
+        ls, cs = decode_step(p, cfg, cs, prompt[:, i], i)
+    assert tdispatch.launch_counts()["tl2"] > 0
+    torch.cuda.synchronize()
+    assert float((lw - ls).abs().max()) <= 2.0 ** -4
+    for name, leaf in cw.items():
+        a, b = leaf.float(), cs[name].float()
+        if name == "pos":
+            assert torch.equal(leaf, cs[name])
+            continue
+        assert float((a - b).abs().max()) <= \
+            2.0 ** -4 * float(a.abs().max()), name
+    tdispatch.reset_autotune_cache()
+
+
+def test_zamba2_engine_streams_on_cuda_equal_cpu(cuda, tmp_path, monkeypatch):
+    """A reduced zamba2 engine on the card (prior: ``lut_gather`` at the
+    prompts' rows, ``tl2`` at batch-2 decode) against the same engine on
+    the CPU (plain versions), canonical greedy: streams equal up to the
+    first step where the CPU logits' top-2 margin is below 2^-4 (the
+    card's kernels sum in other orders than the plain versions)."""
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving.engine import DecodeEngine, Request, SamplerConfig
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    tdispatch.reset_autotune_cache()
+    cfg, served = _recurrent_served(cuda, "zamba2-2.7b")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in (3, 17, 9, 30)]
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        eng = DecodeEngine({k: v for k, v in served.items()}, cfg,
+                           batch_size=2, max_len=64, device=dev,
+                           sampler=SamplerConfig(canonical_greedy=True))
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        tdispatch.reset_launch_counts()
+        eng.serve(reqs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = tdispatch.launch_counts()
+            assert counts["lut_gather"] > 0 and counts["tl2"] > 0
+        assert all(r.done and len(r.out) == 6 for r in reqs)
+        streams[dev] = [r.out for r in reqs]
+    for prompt, a, b in zip(prompts, streams["cuda"], streams["cpu"]):
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        cache, logits = prefill(eng.params, cfg, {"tokens": torch.tensor(
+            [prompt])}, 64)
+        for i in range(t):
+            logits, cache = decode_step(eng.params, cfg, cache,
+                                        torch.tensor([b[i]]), len(prompt) + i)
+        top = logits[0].to(torch.bfloat16).float().topk(2).values
+        assert float(top[0] - top[1]) < 2.0 ** -4, (prompt, a, b)
+    tdispatch.reset_autotune_cache()

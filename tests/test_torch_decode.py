@@ -217,8 +217,13 @@ def test_layer_matmul_shapes_match_jax_for_reduced_attention_archs(arch):
 @pytest.mark.parametrize("arch", sorted(n for n, c in J_ARCHS.items()
                                         if c.block_pattern != "attn"))
 def test_layer_matmul_shapes_refuse_families_not_ported(arch):
+    """The name is kept from when these families were refused; since they
+    are ported, their shapes equal the reference's."""
     jcfg = j_smoke(arch)
     tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                           for f in dataclasses.fields(jcfg)})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdecode.layer_matmul_shapes(tcfg, 2)
+    for batch, seq_len in ((2, 1), (1, 8)):
+        assert tdecode.layer_matmul_problems(tcfg, batch, seq_len) == \
+            jdecode.layer_matmul_problems(jcfg, batch, seq_len)
+        assert tdecode.layer_matmul_shapes(tcfg, batch, seq_len) == \
+            jdecode.layer_matmul_shapes(jcfg, batch, seq_len)
