@@ -56,8 +56,8 @@ line: rounds, accepted drafted tokens and tokens per decode step.
 ``DecodeEngine.run``: one batched prefill of the left-padded prompts, the
 batch turning over at the pace of its slowest request (``--requests``
 must not exceed ``--batch``; a ``--scenario`` replay is continuous).
-The fixed requests' prompts are 2 tokens long, 3 on zamba2 (its prefill
-needs ``ssm_conv - 1`` tokens).
+The fixed requests' prompts are 2 tokens long, or the config's
+``decode.min_prompt_len`` where that is longer (zamba2's ``ssm_conv - 1``).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ import torch
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
-from repro_torch.models.decode import (init_serving_params,
+from repro_torch.models.decode import (init_serving_params, min_prompt_len,
                                        packed_bits_per_weight)
 from repro_torch.serving.engine import DecodeEngine, Request
 from repro_torch.serving.loadgen import (LoadGenerator, LoadResult,
@@ -196,7 +196,7 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
         return res
 
     n_req = args.requests if args.requests is not None else args.batch
-    plen = 3 if cfg.block_pattern == "zamba2" else 2
+    plen = max(2, min_prompt_len(cfg))
     reqs = [Request(prompt=[7 + i, 13 + i, 19 + i][:plen],
                     max_new_tokens=args.new_tokens) for i in range(n_req)]
 

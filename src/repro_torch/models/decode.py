@@ -387,11 +387,17 @@ def _final_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
                              cfg.vocab_size)
 
 
+def min_prompt_len(cfg: ModelConfig) -> int:
+    """The shortest prompt :func:`prefill` takes: zamba2's prefill hands
+    each Mamba2 layer's last ``ssm_conv - 1`` conv inputs to decode, so it
+    needs at least that many tokens (the reference fails below it too, at
+    its conv-state reshape); any other config, one."""
+    return cfg.ssm_conv - 1 if cfg.block_pattern == "zamba2" else 1
+
+
 def check_prompt_len(cfg: ModelConfig, S: int) -> None:
-    """zamba2's prefill hands each Mamba2 layer's last ``ssm_conv - 1``
-    conv inputs to decode, so it needs at least that many tokens (the
-    reference fails below it too, at its conv-state reshape)."""
-    if cfg.block_pattern == "zamba2" and S < cfg.ssm_conv - 1:
+    """Refuse a zamba2 prompt shorter than :func:`min_prompt_len`."""
+    if cfg.block_pattern == "zamba2" and S < min_prompt_len(cfg):
         raise ValueError(
             f"{cfg.name}: a prompt of {S} tokens is shorter than the "
             f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens of conv state a "
@@ -399,9 +405,12 @@ def check_prompt_len(cfg: ModelConfig, S: int) -> None:
 
 
 def _shared_block(shared: Params, x: torch.Tensor, cfg: ModelConfig, **kw):
-    """zamba2's shared attention+FFN block: ``(x, kv)`` with ``kv`` the
-    attention's ``(k, v)`` (prefill) or its written cache (decode)."""
-    a, kv = attention(shared["attn"], rms_norm(shared["ln1"], x), cfg, **kw)
+    """zamba2's shared attention+FFN block: ``(x, (k, v))``, the
+    attention's fresh k/v; with ``cache_k``/``cache_v`` in ``kw`` it
+    attends the read-only ring plus the new token
+    (:func:`append_attention`, decode), else the prompt itself."""
+    attend = append_attention if "cache_k" in kw else attention
+    a, kv = attend(shared["attn"], rms_norm(shared["ln1"], x), cfg, **kw)
     x = x + a
     return x + ffn(shared["ffn"], rms_norm(shared["ln2"], x), cfg), kv
 
@@ -720,7 +729,9 @@ def prefill_chunked(p: Params, cfg: ModelConfig, batch: dict, s_max: int,
     """Whole-prompt prefill built from :func:`prefill_chunk` calls: the
     same cache and last-position logits as :func:`prefill` (up to the
     attention's partitioning), for the configs the chunked path covers.
-    Returns (cache, logits [B, V])."""
+    Nothing serves through it: it is the reference's oracle that chunked
+    admission equals whole-prompt prefill, kept for the tests that hold
+    the two together.  Returns (cache, logits [B, V])."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     CL = cache_len(cfg, s_max)
@@ -780,14 +791,8 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
         cache = _scatter_rows(cache, slot[:, None], positions,
                               torch.stack(ks), torch.stack(vs))
     elif cfg.block_pattern == "zamba2":
-        # the positions go in first: every shared-block call attends the
-        # ring with this step's key in it
-        rows = torch.arange(B, device=h.device)
-        live = slot < CL
-        at = slot.clamp_max(CL - 1).long()
-        pos = cache["pos"]
-        pos[:, rows, at] = torch.where(live, index, pos[:, rows, at])
-        kpos = pos[0]
+        old_pos = cache["pos"][0].clone()
+        ks, vs = [], []
         g = cfg.attn_every
         for i, blk in enumerate(layer_blocks(p, "mamba_blocks")):
             y, (st, cv) = ssm.mamba2_block(
@@ -798,11 +803,16 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
             cache["conv"][i] = cv.to(cache["conv"].dtype)
             if (i + 1) % g == 0:
                 j = i // g
-                h, _ = _shared_block(p["shared_attn"], h, cfg,
-                                     positions=positions, k_positions=kpos,
-                                     window=cfg.window,
-                                     cache=(cache["k"][j], cache["v"][j]),
-                                     cache_index=slot)
+                h, (k, v) = _shared_block(p["shared_attn"], h, cfg,
+                                          positions=positions,
+                                          cache_k=cache["k"][j],
+                                          cache_v=cache["v"][j],
+                                          k_positions=old_pos,
+                                          window=cfg.window)
+                ks.append(k)
+                vs.append(v)
+        cache = _scatter_rows(cache, slot[:, None], positions,
+                              torch.stack(ks), torch.stack(vs))
     else:  # xlstm
         for i, (mblk, sblk) in enumerate(zip(layer_blocks(p, "mlstm_blocks"),
                                              layer_blocks(p, "slstm_blocks"))):

@@ -262,37 +262,10 @@ def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, k_positions: torch.Tensor | None = None,
-              kind: str = "causal", window: int = 0,
-              cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-              cache_index: torch.Tensor | None = None,
-              return_kv: bool = False):
-    """GQA self-attention.
-
-    Training / whole-prompt prefill: keys and values from ``x`` itself;
-    ``k_positions`` defaults to ``positions``; ``return_kv`` also returns
-    the roped ``(k, v)``.
-
-    Decode (``cache=(k_cache [B, CL, Hkv, hd], v_cache)``, Sq = 1): the new
-    k/v are written in place at ``cache_index`` ([B] ring slots, each row
-    at its own; a slot out of ``[0, CL)`` writes nothing, as the
-    reference's dropped scatter), then the whole ring is attended with
-    ``k_positions`` [B, CL] (the slot positions after this step's write,
-    -1 = empty).  Returns (out, (k_cache, v_cache))."""
+              kind: str = "causal", window: int = 0, return_kv: bool = False):
+    """GQA self-attention over ``x`` itself (training / whole-prompt
+    prefill); ``return_kv`` also returns the roped ``(k, v)``."""
     q, k, v = _qkv(p, x, cfg, positions)
-    if cache is not None:
-        ck, cv = cache
-        B, CL = ck.shape[:2]
-        ci = cache_index.to(torch.int64).reshape(B)
-        live = (ci >= 0) & (ci < CL)
-        rows = torch.arange(B, device=ci.device)
-        at = ci.clamp(0, CL - 1)
-        # a dead row rewrites what its clamped slot holds: no host read
-        for c, new in ((ck, k), (cv, v)):
-            c[rows, at] = torch.where(live[:, None, None],
-                                      new[:, 0].to(c.dtype), c[rows, at])
-        out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), cfg, q_pos=positions,
-                    k_pos=k_positions, kind=kind, window=window)
-        return linear(p["wo"], out, cfg), (ck, cv)
     out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), cfg, q_pos=positions,
                 k_pos=positions if k_positions is None else k_positions,
                 kind=kind, window=window)

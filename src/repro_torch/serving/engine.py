@@ -55,7 +55,8 @@ from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        extract_kv_blocks, init_cache,
                                        layer_grouped_matmul_problems,
                                        layer_matmul_problems, prefill,
-                                       prefill_chunks_of, rollback_kv_window,
+                                       prefill_chunks_of, prefill_into_slot,
+                                       rollback_kv_window,
                                        snapshot_kv_window, splice_kv_blocks,
                                        splice_rows, supports_chunked_prefill,
                                        verify_step)
@@ -539,9 +540,9 @@ class DecodeEngine:
         prompt, committed through the same splice as the chunked path."""
         toks = torch.tensor([request.prompt], dtype=torch.int64,
                             device=self.device)
-        cache1, logits = prefill(self.params, self.cfg, {"tokens": toks},
-                                 s_max=self.max_len)
-        return self._commit(state, slot, request, cache1, logits[0])
+        _, logits = prefill_into_slot(self.params, self.cfg, state["cache"],
+                                      {"tokens": toks}, slot, self.max_len)
+        return self._arm(state, slot, request, logits)
 
     def prefix_match_len(self, request: Request) -> int:
         """Cached-prefix depth for ``request`` in tokens: how much prefill
@@ -567,6 +568,12 @@ class DecodeEngine:
         splice_rows(state["cache"], slot, cache1)
         if self.spec_k:
             splice_rows(state["dcache"], slot, dcache1)
+        return self._arm(state, slot, request, logits1)
+
+    def _arm(self, state: dict, slot: int, request: Request,
+             logits1: torch.Tensor) -> dict:
+        """Arm batch row ``slot`` for ``request``, whose prompt's last
+        logits are ``logits1`` (in place)."""
         state["logits"][slot] = logits1
         state["live"][slot] = True
         state["index"][slot] = len(request.prompt) - 1

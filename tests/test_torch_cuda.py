@@ -1251,11 +1251,12 @@ ZAMBA_OK = [(5120, 2560), (2560, 5120), (2560, 2560), (10240, 2560),
 
 
 @pytest.mark.parametrize("O,K", ZAMBA_OK)
-@pytest.mark.parametrize("B", [3, 4, 64, 120])
+@pytest.mark.parametrize("B", [3, 4, 5, 17, 33, 64, 120])
 def test_lut_gather_at_zamba2_shapes_and_whole_prompt_rows(cuda, B, O, K):
     """Whole-prompt admission launches ``lut_gather`` at the prompt's row
     count (3 to 120) on zamba2's widths (K up to 10240), as served: x of
-    the logical width, the weight's keys view."""
+    the logical width, the weight's keys view.  The rows cover each row
+    tile the kernel compiles (4, 8, 16 rows) and partial tiles of each."""
     x, w = _case(70 + B, B, O, K)
     xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
     keys = tdispatch.TernaryWeight.from_ternary(
