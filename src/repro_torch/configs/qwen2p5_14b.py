@@ -1,0 +1,8 @@
+"""qwen2.5-14b [dense]: GQA with QKV bias.  [hf:Qwen/Qwen2.5; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b", family="dense",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=13_824,
+    vocab_size=152_064, act_fn="silu", qkv_bias=True, rope_theta=1_000_000.0,
+)

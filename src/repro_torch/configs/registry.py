@@ -4,13 +4,17 @@ from __future__ import annotations
 
 import re
 
-from repro_torch.configs import (bitnet_2b, phi3p5_moe, xlstm_125m,
+from repro_torch.configs import (bitnet_2b, gemma_7b, internvl2_2b,
+                                 phi3p5_moe, qwen2p5_14b, qwen3_0p6b,
+                                 whisper_large_v3, xlstm_125m, yi_34b,
                                  zamba2_2p7b)
 from repro_torch.models.config import ModelConfig, reduced
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
                                  for m in [bitnet_2b, phi3p5_moe, zamba2_2p7b,
-                                          xlstm_125m]}
+                                          xlstm_125m, qwen3_0p6b, gemma_7b,
+                                          qwen2p5_14b, yi_34b,
+                                          whisper_large_v3, internvl2_2b]}
 
 
 def _resolve(name: str) -> str:

@@ -322,7 +322,9 @@ def reset_launch_counts() -> None:
 
 
 def _run_ref(x2, w, mu):
-    return x2.to(torch.float32) @ w.trits().to(torch.float32).T
+    # f32, or f64 for f64 x: the plain path's f64 yardstick
+    dt = torch.float64 if x2.dtype == torch.float64 else torch.float32
+    return x2.to(dt) @ w.trits().to(dt).T
 
 
 def _run_lut(kernel):
@@ -759,7 +761,9 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
 
     ``x`` is float (f32/bf16/f16) or pre-quantized int8 (the caller applies
     the activation scale).  Returns ``[..., N]`` in ``x``'s dtype for float
-    inputs, f32 for int8.  See :func:`per_position_launches`."""
+    inputs, f32 for int8.  An f64 ``x`` (the plain path's f64 yardstick,
+    ``decode.f64_params``) takes the plain ``ref`` product in f64 under
+    any policy.  See :func:`per_position_launches`."""
     if _PER_POSITION.get() and x.ndim == 3 and x.shape[1] > 1:
         return torch.stack([ternary_matmul(x[:, j], w, scale=scale,
                                            policy=policy, mu=mu, cache=cache)
@@ -772,8 +776,9 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
     x2 = x.reshape(-1, k)
     n = w.out_features
     act = _dtype_name(x.dtype)
-    spec = select_kernel(x2.shape[0], k, n, act, policy=policy,
-                         device=x.device.type, cache=cache, mu=mu)
+    spec = REGISTRY["ref"] if act == "float64" else select_kernel(
+        x2.shape[0], k, n, act, policy=policy, device=x.device.type,
+        cache=cache, mu=mu)
     y = spec.run(x2, w, mu)
     s = w.scale if scale is None else scale
     if s is not None:

@@ -45,6 +45,10 @@ def _check(x: torch.Tensor, keys: torch.Tensor, mu: int):
     return B, O, G
 
 
+#: the largest fetched block the plain gather version holds at once
+PLAIN_BLOCK_BYTES = 1 << 30
+
+
 def _padded(x: torch.Tensor, G: int, mu: int) -> torch.Tensor:
     """``x`` zero-padded to ``G·mu`` columns (the plain versions' tables)."""
     pad = G * mu - x.shape[-1]
@@ -72,13 +76,19 @@ def lut_matmul_torch(x: torch.Tensor, keys: torch.Tensor, mu: int) -> torch.Tens
 
     x: [B, K] activations (f32/bf16/int8), K the logical width or padded
     to G·mu (zero-padded here); keys: [O, G]
-    (:func:`encoding.encode_weight_matrix`).  Returns [B, O] f32."""
+    (:func:`encoding.encode_weight_matrix`).  Returns [B, O] f32.
+
+    Rows are independent, so they go through in blocks whose fetched
+    ``[rows, O, G]`` f32 stays under :data:`PLAIN_BLOCK_BYTES` (a whole
+    prompt of whisper's 1500 frames would fetch 13 GB at once)."""
     B, O, G = _check(x, keys, mu)
     tables = _tables(_padded(x, G, mu), B, G, mu)              # [B, G, T+1]
     idx, sign = _split_keys(keys, mu)                          # [O, G]
     g = torch.arange(G, device=x.device)
-    fetched = tables[:, g[None, :], idx]                       # [B, O, G]
-    return (fetched * sign).sum(-1)
+    rows = max(1, PLAIN_BLOCK_BYTES // (4 * O * G))
+    out = [(tables[r:r + rows, g[None, :], idx] * sign).sum(-1)
+           for r in range(0, B, rows)]                         # [rows, O]
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def lut_onehot_matmul_torch(x: torch.Tensor, keys: torch.Tensor,

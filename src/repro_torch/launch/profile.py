@@ -19,8 +19,9 @@ Usage (on the card):
   python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
   python -m repro_torch.launch.profile --arch zamba2-2.7b --batch 4
 
-(zamba2-2.7b and xlstm-125m admit each slot's prompt through one
-whole-prompt prefill.)
+(zamba2-2.7b, xlstm-125m, whisper-large-v3 and internvl2-2b admit each
+slot's prompt through one whole-prompt prefill; each slot's prompt is 8
+tokens, or internvl2's 64 vision positions.)
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
 from repro_torch.launch.serve import scenario_max_len
-from repro_torch.models.decode import init_serving_params
+from repro_torch.models.decode import init_serving_params, min_prompt_len
 from repro_torch.serving.engine import DecodeEngine, Request
 from repro_torch.serving.workload import get_scenario
 
@@ -124,7 +125,8 @@ def main(argv: list[str] | None = None) -> dict:
            "act_dtype": cfg.act_dtype,
            "policy": args.policy or "auto",
            "gpu": torch.cuda.get_device_name(device),
-           **profile_steps(engine, args.steps)}
+           **profile_steps(engine, args.steps,
+                           max(8, min_prompt_len(cfg)))}
     print(json.dumps(out), flush=True)
     return out
 

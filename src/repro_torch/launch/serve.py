@@ -11,11 +11,14 @@ Usage:
       [--draft <arch>] [--spec-k 4] [--dynamic-spec-k] \
       [--discipline continuous|generational] [--device cuda|cpu] [--seed 0]
 
-``--arch`` takes bitnet-b1.58-2b, phi3.5-moe-42b-a6.6b (16 experts,
-top-2, an MoE FFN on every layer), zamba2-2.7b (54 Mamba2 layers and one
-shared attention+FFN block after every 6th) or xlstm-125m (alternating
-mLSTM/sLSTM layers); the last two admit each request through one
-whole-prompt prefill.  Weights are random (there is no
+``--arch`` takes bitnet-b1.58-2b, the dense qwen3-0.6b, gemma-7b,
+qwen2.5-14b and yi-34b, phi3.5-moe-42b-a6.6b (16 experts, top-2, an MoE
+FFN on every layer), zamba2-2.7b (54 Mamba2 layers and one shared
+attention+FFN block after every 6th), xlstm-125m (alternating mLSTM/sLSTM
+layers), whisper-large-v3 (encoder-decoder; the audio frontend is a stub
+of zero frame embeddings) or internvl2-2b (the vision frontend is a stub of
+zero embeddings over the first 64 positions); the last four admit each
+request through one whole-prompt prefill.  Weights are random (there is no
 checkpoint in the repository); ``decode.init_serving_params`` packs each
 layer as it is drawn, so the bf16 tree is never held (phi3.5-moe's would
 not fit the card).  Every ternary projection goes through
@@ -57,7 +60,8 @@ line: rounds, accepted drafted tokens and tokens per decode step.
 batch turning over at the pace of its slowest request (``--requests``
 must not exceed ``--batch``; a ``--scenario`` replay is continuous).
 The fixed requests' prompts are 2 tokens long, or the config's
-``decode.min_prompt_len`` where that is longer (zamba2's ``ssm_conv - 1``).
+``decode.min_prompt_len`` where that is longer (zamba2's ``ssm_conv - 1``,
+a VLM's ``vision_tokens``).
 """
 
 from __future__ import annotations
@@ -197,7 +201,7 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
 
     n_req = args.requests if args.requests is not None else args.batch
     plen = max(2, min_prompt_len(cfg))
-    reqs = [Request(prompt=[7 + i, 13 + i, 19 + i][:plen],
+    reqs = [Request(prompt=[7 + i + 6 * j for j in range(plen)],
                     max_new_tokens=args.new_tokens) for i in range(n_req)]
 
     reset_launch_counts()

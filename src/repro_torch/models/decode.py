@@ -1,5 +1,6 @@
 """Serving-side paths of the families the port serves (attention, dense
-and MoE; zamba2's Mamba2 + shared attention; xlstm's mLSTM/sLSTM): ternary
+and MoE, with whisper's encoder-decoder and internvl2's vision prefix;
+zamba2's Mamba2 + shared attention; xlstm's mLSTM/sLSTM): ternary
 weight packing, the KV ring and recurrent-state caches, prefill (whole,
 into one slot of a live cache, and chunked for the attention family),
 single-token decode, the prefix-cache block extract and splice, and
@@ -40,13 +41,16 @@ from repro_torch.kernels.dispatch import (GroupedTernaryWeight, TernaryWeight,
                                           per_position_launches)
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (append_attention, attention, ffn,
-                                       mask_padded_vocab, moe_capacity,
-                                       ring_writes, rms_norm)
+from repro_torch.models.layers import (acc_dtype, append_attention,
+                                       attention, ffn, mask_padded_vocab,
+                                       moe_capacity, ring_writes, rms_norm)
 from repro_torch.models.model import (Params, block_ffn, check_supported,
                                       embed_tokens, init_layer, init_shared,
                                       init_top, layer_blocks, layer_stacks,
-                                      lm_head_w, stack_layers)
+                                      lm_head_w, sinusoidal_position_at,
+                                      sinusoidal_positions, stack_layers,
+                                      whisper_cross, whisper_dec_block,
+                                      whisper_encode, with_positions)
 
 logger = logging.getLogger(__name__)
 
@@ -125,6 +129,22 @@ def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def f64_params(p: Params) -> Params:
+    """The serving tree ``p`` for the f64 yardstick: its float embedding
+    and LM head in f64 (bf16 values, exact), every other leaf shared.  Run
+    under ``matmul_policy="fixed:ref"`` with f64 frontend inputs, the
+    plain path then computes in f64 end to end: each packed projection
+    decodes its trits to f64 (dispatch's ``ref``), every norm, attention
+    and recurrence accumulates in f64 (``layers.acc_dtype``), and the
+    model's constants keep their bf16 rounding.  Its logits measure how far
+    the bf16 model's own roundings carry, with or without the kernels."""
+    out = dict(p)
+    for name in ("embed", "lm_head"):
+        if name in p:
+            out[name] = {"w": p[name]["w"].double()}
+    return out
+
+
 def packed_bits_per_weight(p: Params) -> float:
     """Measured storage density of the serving artifact (≈1.6 b/w; the
     128-byte row padding counts as stored)."""
@@ -150,7 +170,7 @@ def _logical_k(cfg: ModelConfig, path: tuple) -> int:
     decodes to trits, so a wrong width would read padding as weights."""
     parent, name = path[-2], path[-1]
     d = cfg.d_model
-    if parent == "attn":
+    if parent in ("attn", "self_attn", "cross_attn"):
         return cfg.q_dim if name == "wo" else d
     if parent in ("ffn", "moe", "shared"):
         return cfg.d_ff if name == "wo" else d
@@ -164,8 +184,9 @@ def _logical_k(cfg: ModelConfig, path: tuple) -> int:
 
 
 def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
-    """The serving tree with each layer stack (``p["blocks"]``, or the
-    recurrent families' stacks) split into per-layer dicts whose packed
+    """The serving tree with each layer stack (``p["blocks"]``, whisper's
+    encoder and decoder stacks, or the recurrent families' stacks) split
+    into per-layer dicts whose packed
     leaves carry a bound :class:`TernaryWeight` under ``"tw"``, or, for MoE
     expert stacks, a :class:`GroupedTernaryWeight` under ``"gw"``, so each
     kernel's weight encoding is derived once and reused by every step.
@@ -285,9 +306,12 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
                device: str | torch.device = "cuda") -> dict:
     """A fresh cache of ``B`` rows, every leaf ``[layers, B, ...]``: the KV
     ring and its slot positions (-1 = empty) for each attention layer
-    (zamba2: one per shared-block invocation), zamba2's f32 SSM states and
-    conv windows, xlstm's mLSTM ``(C, n, m)`` and sLSTM ``(c, n, h, m)``
-    states at the reference's initial values."""
+    (zamba2: one per shared-block invocation; whisper: each decoder
+    layer's self-attention, beside its cross-attention keys and values
+    ``cross_k``/``cross_v`` ``[L, B, enc_seq, Hkv, hd]``, written once by
+    prefill), zamba2's f32 SSM states and conv windows, xlstm's mLSTM
+    ``(C, n, m)`` and sLSTM ``(c, n, h, m)`` states at the reference's
+    initial values."""
     CL = cache_len(cfg, s_max)
     f32 = torch.float32
 
@@ -299,7 +323,13 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
                 "pos": torch.full((n, B, CL), -1, dtype=torch.int32,
                                   device=device)}
 
-    if cfg.block_pattern == "attn" and not cfg.is_encdec:
+    if cfg.is_encdec:
+        c = kv(cfg.n_layers)
+        shape = (cfg.n_layers, B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return c
+    if cfg.block_pattern == "attn":
         return kv(cfg.n_layers)
     if cfg.block_pattern == "zamba2":
         d_in, H, N = ssm.ssm_dims(cfg)
@@ -325,7 +355,7 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
                 "sm": full((half, B, D), -1e30)}
     raise NotImplementedError(
         f"the port's cache covers the attention, zamba2 and xlstm families, "
-        f"not {cfg.block_pattern} (encoder layers {cfg.enc_layers})")
+        f"not {cfg.block_pattern}")
 
 
 def splice_rows(cache: dict, slot: int, one: dict) -> dict:
@@ -382,8 +412,9 @@ def _prefill_positions(S: int, CL: int, device=None) -> torch.Tensor:
 
 
 def _final_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """[B, D] final hidden → masked f32 logits [B, V]."""
-    return mask_padded_vocab((h @ lm_head_w(p, cfg)).to(torch.float32),
+    """[B, D] final hidden → masked f32 logits [B, V] (f64 for the f64
+    yardstick)."""
+    return mask_padded_vocab((h @ lm_head_w(p, cfg)).to(acc_dtype(h)),
                              cfg.vocab_size)
 
 
@@ -391,17 +422,30 @@ def min_prompt_len(cfg: ModelConfig) -> int:
     """The shortest prompt :func:`prefill` takes: zamba2's prefill hands
     each Mamba2 layer's last ``ssm_conv - 1`` conv inputs to decode, so it
     needs at least that many tokens (the reference fails below it too, at
-    its conv-state reshape); any other config, one."""
-    return cfg.ssm_conv - 1 if cfg.block_pattern == "zamba2" else 1
+    its conv-state reshape); a VLM's vision prefix overwrites the first
+    ``vision_tokens`` positions, so it needs as many (the reference fails
+    below it in ``dynamic_update_slice``); any other config, one."""
+    if cfg.block_pattern == "zamba2":
+        return cfg.ssm_conv - 1
+    if cfg.frontend == "vit_stub":
+        return cfg.vision_tokens
+    return 1
 
 
 def check_prompt_len(cfg: ModelConfig, S: int) -> None:
-    """Refuse a zamba2 prompt shorter than :func:`min_prompt_len`."""
-    if cfg.block_pattern == "zamba2" and S < min_prompt_len(cfg):
+    """Refuse a prompt shorter than :func:`min_prompt_len` (the padded
+    length for a batch of left-padded prompts, as ``run()`` prefills)."""
+    if S >= min_prompt_len(cfg):
+        return
+    if cfg.block_pattern == "zamba2":
         raise ValueError(
             f"{cfg.name}: a prompt of {S} tokens is shorter than the "
             f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens of conv state a "
             f"Mamba2 prefill leaves for decode")
+    raise ValueError(
+        f"{cfg.name}: a prompt of {S} tokens is shorter than the "
+        f"vision_tokens = {cfg.vision_tokens} positions its vision prefix "
+        f"overwrites")
 
 
 def _shared_block(shared: Params, x: torch.Tensor, cfg: ModelConfig, **kw):
@@ -416,7 +460,10 @@ def _shared_block(shared: Params, x: torch.Tensor, cfg: ModelConfig, **kw):
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
-    """Run the full prompt once; return (cache, last-position logits)."""
+    """Run the full prompt once; return (cache, last-position logits).
+    ``batch`` holds ``tokens`` [B, S] and, for whisper, ``frames`` [B,
+    enc_seq, D]; for a VLM, ``vision_embeds`` [B, vision_tokens, D]
+    (either stub input zero where a caller has none, as the engine's)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     CL = cache_len(cfg, s_max)
@@ -429,9 +476,22 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
     dev = tokens.device
     cache = init_cache(cfg, B, CL if cfg.window else s_max, device=dev)
     positions = torch.arange(S, device=dev)
-    x = embed_tokens(p, cfg, tokens)
+    x = embed_tokens(p, cfg, tokens, batch.get("vision_embeds"))
     ks, vs = [], []
-    if cfg.block_pattern == "attn":
+    if cfg.is_encdec:
+        enc_out = whisper_encode(p, cfg, batch["frames"])
+        x = with_positions(x, sinusoidal_positions(S, cfg.d_model, dev)[None])
+        cks, cvs = [], []
+        for blk in layer_blocks(p, "dec_blocks"):
+            x, (k, v), (ck, cv) = whisper_dec_block(blk, x, cfg, positions,
+                                                    enc_out)
+            ks.append(k)
+            vs.append(v)
+            cks.append(ck)
+            cvs.append(cv)
+        cache["cross_k"] = torch.stack(cks).to(cache["cross_k"].dtype)
+        cache["cross_v"] = torch.stack(cvs).to(cache["cross_v"].dtype)
+    elif cfg.block_pattern == "attn":
         for blk in layer_blocks(p):
             hn = rms_norm(blk["ln1"], x, offset=cfg.rmsnorm_offset)
             a, (k, v) = attention(blk["attn"], hn, cfg, positions=positions,
@@ -772,7 +832,26 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     slot = _ring_slot(cfg, CL, index)
     positions = index[:, None]
     h = embed_tokens(p, cfg, tokens[:, None])
-    if cfg.block_pattern == "attn":
+    if cfg.is_encdec:
+        h = with_positions(h, sinusoidal_position_at(index,
+                                                     cfg.d_model)[:, None])
+        old_pos = cache["pos"][0].clone()
+        ks, vs = [], []
+        for i, blk in enumerate(layer_blocks(p, "dec_blocks")):
+            a, (k, v) = append_attention(
+                blk["self_attn"], rms_norm(blk["ln1"], h), cfg,
+                positions=positions, cache_k=cache["k"][i],
+                cache_v=cache["v"][i], k_positions=old_pos,
+                window=cfg.window, use_rope=False)
+            h = h + a
+            h = whisper_cross(blk, h, cfg, positions,
+                              (cache["cross_k"][i], cache["cross_v"][i]))
+            h = h + ffn(blk["ffn"], rms_norm(blk["ln3"], h), cfg)
+            ks.append(k)
+            vs.append(v)
+        cache = _scatter_rows(cache, slot[:, None], positions,
+                              torch.stack(ks), torch.stack(vs))
+    elif cfg.block_pattern == "attn":
         old_pos = cache["pos"][0].clone()
         ks, vs = [], []
         for i, blk in enumerate(layer_blocks(p)):

@@ -36,12 +36,19 @@ from repro_torch.models.config import ModelConfig
 Params = dict[str, Any]
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the reference normalizes and accumulates in (f32), or f64
+    for f64 activations: the plain path run in f64 end to end, the
+    yardstick of the logits' rounding drift."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def rms_norm(p: Params, x: torch.Tensor, *, offset: bool = False,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = x.to(acc_dtype(x))
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-    g = p["g"].to(torch.float32)
+    g = p["g"].to(x.dtype)
     if offset:
         g = 1.0 + g
     return (x * g).to(dt)
@@ -150,12 +157,13 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, q_pos, k_pos, kind: str = "causal",
     k_pos = torch.atleast_2d(k_pos)
     scale = 1.0 / math.sqrt(hd)
     qb = q.reshape(B, Sq, Hkv, rep, hd)
-    m = torch.full((B, Hkv, rep, Sq), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, rep, Sq, hd), dtype=torch.float32, device=q.device)
+    f32 = acc_dtype(q)
+    m = torch.full((B, Hkv, rep, Sq), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((B, Hkv, rep, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Hkv, rep, Sq, hd), dtype=f32, device=q.device)
 
     def merge(m, l, acc, kb, vb, kp, mk):
-        s = torch.einsum("bqkrd,bskd->bkrqs", qb, kb).to(torch.float32) * scale
+        s = torch.einsum("bqkrd,bskd->bkrqs", qb, kb).to(f32) * scale
         valid = _chunk_mask(q_pos, kp, mk, window)
         s = torch.where(valid[:, None, None], s, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
@@ -163,7 +171,7 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, q_pos, k_pos, kind: str = "causal",
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bkrqs,bskd->bkrqd", p.to(vb.dtype), vb).to(torch.float32)
+            "bkrqs,bskd->bkrqd", p.to(vb.dtype), vb).to(f32)
         return m_new, l, acc
 
     ck = min(chunk_k, Sk)
@@ -184,15 +192,31 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, q_pos, k_pos, kind: str = "causal",
     return out.reshape(B, Sq, H * hd).to(v.dtype)
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+def _q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
+       use_rope: bool = True):
     B, Sq, _ = x.shape
     q = linear(p["wq"], x, cfg).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
-    k = linear(p["wk"], x, cfg).reshape(B, Sq, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(p["wv"], x, cfg).reshape(B, Sq, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
+    return rope(q, positions, cfg.rope_theta) if use_rope else q
+
+
+def cross_kv(p: Params, src: torch.Tensor, cfg: ModelConfig):
+    """Keys and values of ``src`` [B, S, D] (whisper's encoder output)
+    under the projections ``p``: ``(k, v)`` [B, S, Hkv, hd], unroped."""
+    B, S, _ = src.shape
+    k = linear(p["wk"], src, cfg).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(p["wv"], src, cfg).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
+         use_rope: bool = True):
+    q = _q(p, x, cfg, positions, use_rope)
+    k, v = cross_kv(p, x, cfg)
+    if cfg.qk_norm:
         k = rms_norm(p["k_norm"], k)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    return q, rope(k, positions, cfg.rope_theta) if use_rope else k, v
 
 
 def ring_writes(slot: torch.Tensor, CL: int):
@@ -209,7 +233,7 @@ def ring_writes(slot: torch.Tensor, CL: int):
 def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, k_positions: torch.Tensor,
-                     window: int = 0, scatter=None):
+                     window: int = 0, scatter=None, use_rope: bool = True):
     """Attention over a read-only KV cache plus the tokens being appended
     (decode: one token; chunked prefill: one chunk), merged as one extra
     online-softmax chunk.  Causality inside the chunk falls out of the
@@ -231,8 +255,9 @@ def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     the reduction order and the row count are then those of sequential
     single-token decode.  Dense caches only: on a wrapped ring the write
     would evict keys that earlier chunk positions still attend.  Returns
-    (out, (cache_k, cache_v))."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    (out, (cache_k, cache_v)).  ``use_rope=False``: no rotary embedding
+    (whisper's decoder self-attention)."""
+    q, k, v = _qkv(p, x, cfg, positions, use_rope)
     if scatter is not None:
         if window:
             raise ValueError("scatter-first exact attention requires a "
@@ -262,10 +287,18 @@ def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, k_positions: torch.Tensor | None = None,
-              kind: str = "causal", window: int = 0, return_kv: bool = False):
+              kind: str = "causal", window: int = 0, kv=None,
+              use_rope: bool = True, return_kv: bool = False):
     """GQA self-attention over ``x`` itself (training / whole-prompt
-    prefill); ``return_kv`` also returns the roped ``(k, v)``."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    prefill), or, with ``kv=(k, v)`` [B, Sk, Hkv, hd] given, attention of
+    ``x``'s queries over those keys (whisper's cross-attention, with
+    ``kind="full"`` and ``k_positions`` the keys' positions).
+    ``use_rope=False`` skips the rotary embedding; ``return_kv`` also
+    returns the ``(k, v)`` attended."""
+    if kv is None:
+        q, k, v = _qkv(p, x, cfg, positions, use_rope)
+    else:
+        q, (k, v) = _q(p, x, cfg, positions, use_rope), kv
     out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), cfg, q_pos=positions,
                 k_pos=positions if k_positions is None else k_positions,
                 kind=kind, window=window)

@@ -18,7 +18,7 @@ import math
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, _act, linear, rms_norm
+from repro_torch.models.layers import Params, _act, acc_dtype, linear, rms_norm
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -80,10 +80,11 @@ def _ssd_chunked(u, B_in, C_in, log_a, chunk: int, h0=None):
 
     u: [B, S, H, P] (dt-scaled inputs); B_in, C_in: [B, S, N]; log_a:
     [B, S, H] per-step log decays (<= 0); h0: optional [B, H, N, P].
-    Returns (y [B, S, H, P] f32, h_final [B, H, N, P] f32)."""
+    Returns (y [B, S, H, P] f32, h_final [B, H, N, P] f32; f64 for f64
+    ``u``)."""
     Bb, S, H, P = u.shape
     N = B_in.shape[-1]
-    f32 = torch.float32
+    f32 = acc_dtype(u)
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:  # zero input and zero decay (a = 1 keeps the state)
@@ -132,7 +133,8 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xs = linear(p["wx"], x, cfg)
     Bi = linear(p["wB"], x, cfg, ternary=False)
     Ci = linear(p["wC"], x, cfg, ternary=False)
-    dt = linear(p["wdt"], x, cfg, ternary=False).to(torch.float32)
+    f32 = acc_dtype(x)
+    dt = linear(p["wdt"], x, cfg, ternary=False).to(f32)
 
     conv_in = torch.cat([xs, Bi, Ci], dim=-1)
     if conv_state is not None:
@@ -147,20 +149,20 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     dt = softplus(dt + p["dt_bias"])                           # [B, S, H]
     a = -torch.exp(p["A_log"])                                 # [H]
     log_a = dt * a
-    u = xs.reshape(Bb, S, H, P).to(torch.float32) * dt[..., None]
+    u = xs.reshape(Bb, S, H, P).to(f32) * dt[..., None]
 
     if state is None:
         y, h_fin = _ssd_chunked(u, Bi, Ci, log_a, chunk)
     else:
         # single-step recurrence (S == 1)
         a_t = torch.exp(log_a[:, 0])                           # [B, H]
-        h_fin = a_t[:, :, None, None] * state.to(torch.float32) + \
-            torch.einsum("bn,bhp->bhnp", Bi[:, 0].to(torch.float32), u[:, 0])
-        y = torch.einsum("bn,bhnp->bhp", Ci[:, 0].to(torch.float32),
+        h_fin = a_t[:, :, None, None] * state.to(f32) + \
+            torch.einsum("bn,bhp->bhnp", Bi[:, 0].to(f32), u[:, 0])
+        y = torch.einsum("bn,bhnp->bhp", Ci[:, 0].to(f32),
                          h_fin)[:, None]
 
     # D skip connection on the conv'd, unscaled inputs, per head
-    y = y + xs.reshape(Bb, S, H, P).to(torch.float32) * p["D"][None, None, :, None]
+    y = y + xs.reshape(Bb, S, H, P).to(f32) * p["D"][None, None, :, None]
     y = y.reshape(Bb, S, d_in).to(x.dtype)
     y = rms_norm(p["norm"], y * _act("silu")(z))
     y = linear(p["wo"], y, cfg)

@@ -8,8 +8,10 @@ continuous-batching protocol that
 length-bucketed admission into a private single-row cache spliced into the
 live batch on the last chunk, and a fused sample → mask → decode step with
 stop and budget masking on the device.  Architectures the chunked path
-does not cover (zamba2's and xlstm's recurrent states) admit whole: one
-single-row ``prefill`` of the prompt, committed through the same splice.
+does not cover (zamba2's and xlstm's recurrent states, whisper's encoder,
+internvl2's vision prefix) admit whole: one single-row ``prefill`` of the
+prompt, committed through the same splice; the modality frontends get the
+reference engine's stand-in inputs (zero frame or vision embeddings).
 :meth:`DecodeEngine.run` is the generational baseline: one batched prefill
 of left-padded prompts, the batch turning over at the pace of its slowest
 request.
@@ -376,9 +378,13 @@ class DecodeEngine:
         toks = np.full((self.B, plen), PAD_TOKEN, np.int64)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+        # a VLM's vision prefix overwrites the first positions of the
+        # left-padded batch, so its length rule holds for the padded length
         cache, logits = prefill(self.params, self.cfg,
                                 {"tokens": torch.from_numpy(toks).to(
-                                    self.device)}, s_max=self.max_len)
+                                    self.device),
+                                 **self._stub_inputs(self.B)},
+                                s_max=self.max_len)
         cur = plen - 1
         for t in range(max_new):
             tokens = sample_tokens(logits, self.sampler, self._gen)
@@ -541,8 +547,25 @@ class DecodeEngine:
         toks = torch.tensor([request.prompt], dtype=torch.int64,
                             device=self.device)
         _, logits = prefill_into_slot(self.params, self.cfg, state["cache"],
-                                      {"tokens": toks}, slot, self.max_len)
+                                      {"tokens": toks, **self._stub_inputs(1)},
+                                      slot, self.max_len)
         return self._arm(state, slot, request, logits)
+
+    def _stub_inputs(self, B: int) -> dict:
+        """The modality frontends' stand-in inputs for ``B`` rows, as the
+        reference engine's: whisper's zero frame embeddings ``[B, enc_seq,
+        D]`` and a VLM's zero vision embeddings ``[B, vision_tokens, D]``,
+        bf16."""
+        cfg, extras = self.cfg, {}
+        if cfg.frontend == "audio_stub":
+            extras["frames"] = torch.zeros(
+                (B, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        if cfg.frontend == "vit_stub":
+            extras["vision_embeds"] = torch.zeros(
+                (B, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        return extras
 
     def prefix_match_len(self, request: Request) -> int:
         """Cached-prefix depth for ``request`` in tokens: how much prefill

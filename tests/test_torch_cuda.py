@@ -1367,3 +1367,55 @@ def test_zamba2_engine_streams_on_cuda_equal_cpu(cuda, tmp_path, monkeypatch):
         top = logits[0].to(torch.bfloat16).float().topk(2).values
         assert float(top[0] - top[1]) < 2.0 ** -4, (prompt, a, b)
     tdispatch.reset_autotune_cache()
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and dense archs' new shapes: whisper's encoder and
+# cross keys and values at M = enc_seq = 1500, gemma's K = 24,576
+# ---------------------------------------------------------------------------
+
+#: whisper-large-v3's projections (O, K): the attentions' square ones, the
+#: FFN's up and down
+WHISPER_OK = [(1280, 1280), (5120, 1280), (1280, 5120)]
+#: gemma-7b's FFN down projection (K = d_ff) and its up projection
+GEMMA_OK = [(3072, 24576), (24576, 3072)]
+
+
+@pytest.mark.parametrize("O,K", WHISPER_OK)
+def test_lut_gather_at_whisper_encoder_rows(cuda, O, K):
+    """Whisper's encoder runs every projection, and each decoder layer its
+    cross keys and values, at M = 1500 rows a request (94 row tiles of
+    16), as served: x of the logical width, the weight's keys view.  The
+    plain version goes through in row blocks (its fetch would take 13 GB
+    whole)."""
+    x, w = _case(90, 1500, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    keys = tdispatch.TernaryWeight.from_ternary(
+        torch.from_numpy(w).to(cuda)).keys()
+    n0 = tlut.lut_matmul.launches
+    got = tlut.lut_matmul(xt, keys, 3)
+    assert tlut.lut_matmul.launches == n0 + 1
+    want = tlut.lut_matmul_torch(xt, keys, 3)
+    torch.cuda.synchronize()
+    assert got.shape == (1500, O)
+    assert float((got - want).abs().max()) <= _atol(xt)
+
+
+@pytest.mark.parametrize("O,K", GEMMA_OK)
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_lut_gather_and_tl2_at_gemma_widths(cuda, B, O, K):
+    """gemma's K = 24,576 on ``wo`` (and its N = 24,576 on ``wi``/``wg``):
+    ``lut_gather`` at decode and admission-chunk rows, ``tl2`` at the
+    decode rows it serves (1) and beyond, each against its plain
+    version."""
+    x, w = _case(95 + B, B, O, K)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w).to(cuda))
+    n0 = tlut.lut_matmul.launches
+    got = tlut.lut_matmul(xt, tw.keys(), 3)
+    assert tlut.lut_matmul.launches == n0 + 1
+    want = tlut.lut_matmul_torch(xt, tw.keys(), 3)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= _atol(xt)
+    words = _served_words(w, cuda)
+    _tl2_held(_tl2_once(xt, words, K), xt, w, words, K)
