@@ -123,10 +123,11 @@ def test_qwen3_serve_streams_match_the_jax_engine_through_chunks():
     prompts = _prompts([9, 20, 5])
     jreqs = [jengine.Request(prompt=p, max_new_tokens=NEW_TOKENS)
              for p in prompts]
-    jengine.DecodeEngine(js, jcfg, batch_size=2, max_len=MAX_LEN,
-                         prefill_chunk=CHUNK,
-                         sampler=jengine.SamplerConfig(
-                             canonical_greedy=True)).serve(jreqs)
+    jeng = jengine.DecodeEngine(js, jcfg, batch_size=2, max_len=MAX_LEN,
+                                prefill_chunk=CHUNK,
+                                sampler=jengine.SamplerConfig(
+                                    canonical_greedy=True))
+    jeng.serve(jreqs)
     eng = tengine.DecodeEngine(
         ts, tcfg, batch_size=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
         device="cpu", sampler=tengine.SamplerConfig(canonical_greedy=True))
@@ -138,9 +139,8 @@ def test_qwen3_serve_streams_match_the_jax_engine_through_chunks():
         sched.submit(r)
     sched.run()
     assert sched.stats.prefill_chunks == 2 + 3 + 1
-    chunk = jax.jit(lambda p, c, t, pos, take: jdecode.prefill_chunk(
-        p, jcfg, c, t, pos, take))
-    step = jax.jit(lambda p, c, t, i: jdecode.decode_step(p, jcfg, c, t, i))
+    # the JAX engine's own compiled chunk (traced by its admissions) and step
+    chunk, step = jeng._prefill_chunk_fn, jeng._step
     for prompt, r, jr in zip(prompts, reqs, jreqs):
         assert r.done and len(r.out) == NEW_TOKENS
         jc = jdecode.init_cache(jcfg, 1, MAX_LEN)
