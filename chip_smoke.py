@@ -100,8 +100,7 @@ width and depth, each tree freed before the next is built:
     encoder and decoder blocks sub-layer by sub-layer;
   * ``qwen2p5_batch4`` (qwen2.5-14b: 48 layers, d_model 5120, QKV bias)
     and ``yi_batch4`` (yi-34b: 60 layers, d_model 7168), through chunked
-    admission (a depth cut, where one is needed to fit the run, stands in
-    ``DEPTH``).
+    admission.
 
 Each of them runs ``cross_check`` with seeded non-zero frames and vision
 embeddings; its kernel phase checks ``lut_gather`` at decode (M=4) and
@@ -162,13 +161,17 @@ Tolerances:
     and ``fixed:ref`` each sit from it.  Where a path misses its bound
     against ``fixed:ref`` the f64 logits hold it instead: if both lie
     within 2^-3 of them, ``fixed:ref`` is the wrong yardstick at that
-    depth; if ``fixed:ref`` itself lies beyond 2^-3 of them, the drift is
-    the bf16 model's own (no hand kernel runs on ``fixed:ref``), and the
-    path may sit no more than 2^-3 farther from them than ``fixed:ref``
-    does: what the kernels add to the model's drift stays under 2^-3 (a
-    wrong kernel moves the logits by the order of the logits themselves).
-    On an NVIDIA H100 80GB HBM3 at 700 W, gemma-7b's ``fixed:ref`` sits
-    0.336 from its f64 logits and the prior 0.373, the two 0.344 apart.
+    depth; if ``fixed:ref`` itself lies ``d_ref`` > 2^-3 from them, the
+    drift is the bf16 model's own (no hand kernel runs on ``fixed:ref``),
+    and the path's logits must lie within ``d_ref + 2^-3`` of both
+    ``fixed:ref``'s and the f64 ones (``drift_held``).  That rule is
+    coarser than 2^-3, so where it decides, ``fault_control`` runs the
+    path again with 1, 4, 16 and 64 output rows of the middle layer's FFN
+    ``wo`` negated: the rule must reject the 64-row fault and
+    ``layer_check`` the one-row fault, and all four distances are
+    reported.  On an NVIDIA H100 80GB HBM3 at 700 W, gemma-7b's
+    ``fixed:ref`` sits 0.336 from its f64 logits and the prior 0.373, the
+    two 0.344 apart (its logits reach 25.4).
     The dense archs and internvl2 also run ``layer_check`` (every
     sub-layer fed the reference's input, 2^-5).
   * zamba2's 63 blocks (54 Mamba2 layers, 9 shared-block calls) carry a
@@ -348,9 +351,10 @@ STABILIZED = {"mC": "mm", "mn": "mm", "sc": "sm", "sn": "sm"}
 #: 2^-3 of LOGIT_ATOL is not met at zamba2's depth (see the module docstring
 #: and the ``fixed:ref`` rows of recurrent_check)
 CROSS_ATOL = {ZAMBA: 2.0 ** -1}
-#: the attention archs' depth where a path is cut to fit the run's time
-#: (none: every model runs at full depth)
-DEPTH: dict = {}
+#: fault_control's faults: the path's first n output rows of the middle
+#: layer's FFN ``wo`` negated, for each n; the drift rule must reject the
+#: last, layer_check the first
+FAULT_ROWS = (1, 4, 16, 64)
 #: serving paths on the prior: name -> (model, decode batch, activation
 #: dtype, policy)
 PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
@@ -1497,6 +1501,74 @@ def forced_check(torch, served, cfg) -> dict:
             "argmax_equal": bool(kern.argmax() == ref.argmax())}
 
 
+def drift_held(diff: float, d_kern: float, d_ref: float) -> bool:
+    """cross_check's rule where ``fixed:ref`` itself lies ``d_ref`` >
+    ``LOGIT_ATOL`` from the f64 logits (the bf16 model's own drift): the
+    path's logits within ``d_ref + LOGIT_ATOL`` of ``fixed:ref``'s
+    (``diff``, what the kernels change) and of the f64 ones (``d_kern``)."""
+    return max(diff, d_kern) <= d_ref + LOGIT_ATOL
+
+
+def _with_fault(torch, served, cfg, rows: int, run):
+    """``run()`` with the path's output rows ``[0, rows)`` of the middle
+    layer's FFN ``wo`` negated after its kernel ran (as if those rows'
+    trits were flipped); ``fixed:ref``'s calls are left whole.  Returns
+    ``(run's result, the rows the fault hit)``."""
+    from repro_torch.models import layers
+    from repro_torch.models.model import layer_blocks
+
+    target = layer_blocks(served)[cfg.n_layers // 2]["ffn"]["wo"]["packed"]
+    matmul = layers.ternary_matmul
+    hits = []
+
+    def faulty(x, w, **kw):
+        out = matmul(x, w, **kw)
+        if kw.get("policy") != "fixed:ref" and \
+                w.packed().data_ptr() == target.data_ptr():
+            hits.append(x.shape[:-1].numel())
+            out = out.clone()
+            out[..., :rows] = -out[..., :rows]
+        return out
+
+    layers.ternary_matmul = faulty
+    try:
+        return run(), sum(hits)
+    finally:
+        layers.ternary_matmul = matmul
+
+
+def fault_control(torch, served, cfg, ref, y, d_ref) -> dict:
+    """The control of :func:`drift_held`: the path's prefill logits with
+    each fault of ``FAULT_ROWS`` (:func:`_with_fault`), held against the
+    same ``fixed:ref`` logits ``ref`` and f64 logits ``y``; raises unless
+    the rule rejects the largest fault, and unless :func:`layer_check`
+    rejects the smallest at the faulted layer's FFN."""
+    layer = cfg.n_layers // 2
+    faults = []
+    for rows in FAULT_ROWS:
+        kern, hit = _with_fault(torch, served, cfg, rows,
+                                lambda: _prefill_logits(torch, served, cfg))
+        diff = float((kern - ref).abs().max())
+        d_kern = float((kern.double() - y).abs().max())
+        faults.append({"rows": rows, "rows_run": hit, "max_abs_diff": diff,
+                       "f64_max_abs_diff": d_kern,
+                       "held": drift_held(diff, d_kern, d_ref)})
+    rec = {"layer": layer, "bound": d_ref + LOGIT_ATOL, "faults": faults}
+    if not faults[-1]["rows_run"] or faults[-1]["held"]:
+        raise AssertionError(f"the drift rule holds a faulty path: {rec}")
+    try:
+        _with_fault(torch, served, cfg, FAULT_ROWS[0],
+                    lambda: layer_check(torch, served, cfg))
+    except AssertionError as e:
+        if f"layer {layer} ffn" not in str(e):
+            raise
+        rec["layer_check"] = str(e)
+    else:
+        raise AssertionError(f"layer_check holds a path with {FAULT_ROWS[0]} "
+                             f"row(s) of layer {layer}'s FFN wo negated")
+    return rec
+
+
 def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     """Prefill logits of one prompt through the path's kernels
     (``cfg.matmul_policy``) and through ``fixed:ref``, chunk by chunk as
@@ -1516,8 +1588,8 @@ def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
     path misses its bound against ``fixed:ref`` the f64 logits hold it
     instead (see the module docstring): within ``LOGIT_ATOL`` of them, as
     ``fixed:ref`` is; or, where ``fixed:ref`` itself lies beyond
-    ``LOGIT_ATOL`` of them (the bf16 model's own drift), no more than
-    ``LOGIT_ATOL`` farther from them than ``fixed:ref``."""
+    ``LOGIT_ATOL`` of them (the bf16 model's own drift), by
+    :func:`drift_held`, with :func:`fault_control` run as its control."""
     from repro_torch.models import model as model_mod
     from repro_torch.models.layers import route
 
@@ -1559,8 +1631,10 @@ def cross_check(torch, served, cfg, *, routing_may_differ=False) -> dict:
         d_kern, d_ref = f64["f64_max_abs_diff"], f64["ref_f64_max_abs_diff"]
         if max(d_kern, d_ref) <= LOGIT_ATOL:
             yardstick = "f64"
-        elif d_kern <= d_ref + LOGIT_ATOL:
-            yardstick = "f64, beyond fixed:ref's own distance"
+        elif d_ref > LOGIT_ATOL and drift_held(diff, d_kern, d_ref):
+            yardstick = "fixed:ref's own drift from f64"
+            f64["fault_control"] = fault_control(torch, served, cfg, ref, y,
+                                                 d_ref)
     held = not (routing_may_differ and rerouted)
     if held and not (diff <= atol or yardstick != "fixed:ref"):
         raise AssertionError(f"prefill logits: {path} vs ref max abs diff "
@@ -2091,12 +2165,12 @@ def attention_archs_phase(torch, rows: list, checked: set, flush,
                           card: str) -> dict:
     """The attention archs of ``ATTN_ARCHS``, in order: each model's
     kernel checks (appended to ``rows`` and ``checked``), its tree built
-    layer by layer at full width (and depth, unless ``DEPTH`` cuts it),
-    its batch-4 path served on the prior (the dense archs through chunked
-    admission, internvl2 and whisper through whole prompts with the
-    engine's zero frontend inputs), each model's ``layer_check``
-    (whisper's ``encdec_layer_check``) and ``cross_check`` (seeded
-    frontend inputs), then the tree freed.  Returns ``{path: record}``."""
+    layer by layer at full width and depth, its batch-4 path served on the
+    prior (the dense archs through chunked admission, internvl2 and
+    whisper through whole prompts with the engine's zero frontend inputs),
+    each model's ``layer_check`` (whisper's ``encdec_layer_check``) and
+    ``cross_check`` (seeded frontend inputs), then the tree freed.
+    Returns ``{path: record}``."""
     import gc
 
     paths = {}
@@ -2107,7 +2181,7 @@ def attention_archs_phase(torch, rows: list, checked: set, flush,
         for name, m, act in MODEL_LAYER_ROWS[model]:
             emit("layer", kernel=name, **layer_summary(rows, name, model, m,
                                                        act))
-        cfg, served = build_model(torch, model, DEPTH.get(model))
+        cfg, served = build_model(torch, model)
         cfg = cfg.with_(matmul_policy="prior")
         name = f"{tag}_batch4"
         paths[name] = serve_path(torch, served, cfg, model, batch=4,
@@ -2136,15 +2210,13 @@ def packed_gb(tree) -> float:
     return 0.0
 
 
-def build_model(torch, model: str, depth: int | None = None):
+def build_model(torch, model: str):
     """The model's serving tree at full width, built layer by layer from the
-    seed (``depth`` layers if given, else all); emits the init line."""
+    seed; emits the init line."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.decode import init_serving_params
 
     cfg = get_config(model)
-    if depth:
-        cfg = cfg.with_(n_layers=depth)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()

@@ -762,8 +762,9 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
     ``x`` is float (f32/bf16/f16) or pre-quantized int8 (the caller applies
     the activation scale).  Returns ``[..., N]`` in ``x``'s dtype for float
     inputs, f32 for int8.  An f64 ``x`` (the plain path's f64 yardstick,
-    ``decode.f64_params``) takes the plain ``ref`` product in f64 under
-    any policy.  See :func:`per_position_launches`."""
+    ``decode.f64_params``) runs only under ``policy="fixed:ref"``, the
+    plain product in f64; under any other policy it raises, as no kernel
+    takes f64.  See :func:`per_position_launches`."""
     if _PER_POSITION.get() and x.ndim == 3 and x.shape[1] > 1:
         return torch.stack([ternary_matmul(x[:, j], w, scale=scale,
                                            policy=policy, mu=mu, cache=cache)
@@ -776,9 +777,14 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
     x2 = x.reshape(-1, k)
     n = w.out_features
     act = _dtype_name(x.dtype)
-    spec = REGISTRY["ref"] if act == "float64" else select_kernel(
-        x2.shape[0], k, n, act, policy=policy, device=x.device.type,
-        cache=cache, mu=mu)
+    if act != "float64":
+        spec = select_kernel(x2.shape[0], k, n, act, policy=policy,
+                             device=x.device.type, cache=cache, mu=mu)
+    elif policy == "fixed:ref":
+        spec = REGISTRY["ref"]
+    else:
+        raise ValueError(f"f64 activations (the plain path's f64 yardstick) "
+                         f"run only under policy 'fixed:ref', not {policy!r}")
     y = spec.run(x2, w, mu)
     s = w.scale if scale is None else scale
     if s is not None:

@@ -1419,3 +1419,17 @@ def test_lut_gather_and_tl2_at_gemma_widths(cuda, B, O, K):
     assert float((got - want).abs().max()) <= _atol(xt)
     words = _served_words(w, cuda)
     _tl2_held(_tl2_once(xt, words, K), xt, w, words, K)
+
+
+@pytest.mark.parametrize("policy", [None, "prior", "fixed:lut_gather"])
+def test_f64_activations_on_cuda_raise_outside_fixed_ref(cuda, policy):
+    """An f64 ``x`` on the card launches no kernel and runs no plain
+    product under any policy but ``fixed:ref``: it raises, and no hand
+    kernel's count moves."""
+    x, w = _case(7, 4, 24, 40)
+    tw = tdispatch.TernaryWeight.from_ternary(torch.from_numpy(w).to(cuda))
+    before = tdispatch.launch_counts()
+    with pytest.raises(ValueError, match="float64|fixed:ref"):
+        tdispatch.ternary_matmul(torch.from_numpy(x).to(cuda).double(), tw,
+                                 policy=policy)
+    assert tdispatch.launch_counts() == before

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs.registry import get_config as j_config
 from repro.configs.registry import get_smoke_config as j_smoke
@@ -211,3 +212,22 @@ def test_plain_path_runs_in_f64_as_the_yardstick(arch):
         MAX_LEN)
     assert f64.dtype == torch.float64 and torch.isfinite(f64).all()
     assert float((f64 - bf.double()).abs().max()) <= 2.0 ** -3
+
+
+@pytest.mark.parametrize("policy", [None, "auto", "prior", "fixed:lut_gather",
+                                    "fixed:ref"])
+def test_f64_activations_run_only_under_fixed_ref(policy):
+    """``dispatch.ternary_matmul`` takes an f64 ``x`` (the yardstick's
+    activations) only under ``fixed:ref``, where it is the plain product
+    in f64; under every other policy it raises rather than pick a path."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(3, 40))).double()
+    w = torch.from_numpy(rng.integers(-1, 2, size=(24, 40)).astype(np.int8))
+    tw = tdispatch.TernaryWeight.from_ternary(w)
+    if policy != "fixed:ref":
+        with pytest.raises(ValueError, match="fixed:ref"):
+            tdispatch.ternary_matmul(x, tw, policy=policy)
+        return
+    y = tdispatch.ternary_matmul(x, tw, policy=policy)
+    assert y.dtype == torch.float64
+    assert torch.equal(y, x @ w.double().T)

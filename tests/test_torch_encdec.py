@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs.registry import get_smoke_config as j_smoke
 from repro.models import decode as jdecode

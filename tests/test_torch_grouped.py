@@ -8,6 +8,7 @@ to the JAX package in ``tests/test_torch_moe.py``.
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.core import encoding as tenc
 from repro_torch.kernels import dispatch as tdispatch

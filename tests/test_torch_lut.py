@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core import encoding as jenc
 from repro.kernels.lut_matmul import lut_matmul as j_lut_matmul

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs.registry import get_config as j_config
 from repro.configs.registry import get_smoke_config as j_smoke
@@ -67,18 +68,6 @@ PROMPT_LENS = [3, 11, 17, 6]
 NEW_TOKENS = 6
 CHUNK = 8
 MAX_LEN = 48
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The reduced model's tensors are tiny: one intra-op thread is faster
-    than a pool, and a pool per test worker oversubscribes the host's cores
-    when the suite runs its files in parallel (the port's engine steps then
-    wait on spinning threads)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core import encoding as jenc
 from repro.kernels import tl2_matmul as jtl2
