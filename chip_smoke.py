@@ -6,9 +6,10 @@
 Builds the eight hand-written CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (``lut_gather``, ``lut_onehot``, ``tl2``,
 ``dequant_packed``, ``w2a8``, ``signflip``, ``grouped_dequant``,
-``grouped_w2a8``; one ``nvcc`` per source, all at once), then serves ten
-models at full width, each built layer by layer from a seed
-(``decode.init_serving_params``; the bf16 tree is never held):
+``grouped_w2a8``; one ``nvcc`` per source, all at once), then serves
+eleven models at full width, each built layer by layer from a seed
+(``decode.init_serving_params``; the bf16 tree is never held), and
+trains bitnet at full width and depth and serves the trained weights:
 
 bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
 ``ContinuousScheduler``, on these paths:
@@ -105,7 +106,43 @@ width and depth, each tree freed before the next is built:
 Each of them runs ``cross_check`` with seeded non-zero frames and vision
 embeddings; its kernel phase checks ``lut_gather`` at decode (M=4) and
 at the admission chunk (M=32), or, for the whole-prompt two, at every
-row count their paths and checks run (M=1500 included).
+row count their paths and checks run (M=1500 included);
+
+then llama4-maverick-400b-a17b at full width (d_model 5120, 128 experts
+top-1 with a shared expert, an MoE block after every dense block of
+``dense_ff`` 16,384, vocab 202,048) with its depth cut from 48 to
+``LLAMA4_LAYERS`` = 8 layers (4 groups; 13.4 GB packed plus the 4.1 GB
+embedding and head; at 48 layers the ternary weights alone pack to about
+80 GB), each expert packed as it is drawn:
+
+  * ``llama4_batch4``: bitnet's batch-4 requests on the prior through
+    whole-prompt admission; ``grouped_dequant`` at E=128, C=1 (its
+    capacity at decode and at every prompt here) launched 3 times per MoE
+    layer per step, ``lut_gather`` on the attention, dense-FFN and
+    shared-expert projections; ``layer_check`` over all 8 blocks,
+    ``cross_check`` (held where no token was rerouted) and
+    ``forced_check``, as ``moe_autotuned``'s;
+
+then training (``launch.train``):
+
+  * ``train_bitnet``: bitnet-b1.58-2b at full width and depth in QAT
+    (int8 activation fake-quant, AdamW), 10 steps at global batch 8 x 512
+    tokens, warmup 2, from the seed-0 init: each step's loss, gradient
+    norm, ms and tokens/s, and the peak device memory;
+  * ``train_resume``: the same at full width and 4 layers (its
+    checkpoint of bf16 parameters and f32 AdamW moments is 9.3 GB; the
+    30-layer state's is 27 GB): 10 steps with an async checkpoint after
+    step 5, then a second ``train()`` that restores it and trains steps
+    6-9, deterministic algorithms on: the losses and final parameters
+    must equal the uninterrupted run's bitwise;
+  * ``train_check``: one step with gradient compression of a 2-layer
+    bitnet at full width on the card and on the CPU from the same weights
+    and batch (tolerances below);
+  * ``train_then_serve``: ``decode.quantize_for_serving`` packs the
+    trained 30-layer tree, which serves bitnet's batch-4 requests on the
+    prior through the hand kernels, with ``cross_check`` against
+    ``fixed:ref`` (the flow of the reference's
+    ``test_full_lifecycle_train_quantize_serve``).
 
 Their kernel phase checks ``lut_gather`` at decode (M=4) and at the longest
 whole prompt (M=120) and ``tl2`` at M=1 on each model's shapes (zamba2's
@@ -232,6 +269,17 @@ Tolerances:
     of ``fixed:ref``'s: a bound on the kernels over the whole model with
     the routing noise taken out.
 
+  * ``train_check``: the card and the CPU sum the products in other
+    orders, which can move a bf16 activation by an ulp and an int8
+    activation code by one.  The loss is held to 2^-10 relative, each
+    gradient leaf to a relative L2 distance of 2^-4, and each leaf's
+    update to 2^-1: after the int8 gradient round trip AdamW's first
+    step is about ``lr x sign(g)``, so a gradient entry whose int8 code
+    the two round differently, or whose sign the rounding flips, moves
+    its update by up to 2 lr (on an NVIDIA H100 80GB HBM3 at 700 W:
+    6.1e-5, 0.024 and 0.18; the updates' signs agree on 97.8% of every
+    matrix's entries or more).
+
 Timing: each kernel, its plain version and the library yardstick are timed
 call by call from a cold L2 by the timer autotune uses
 (``dispatch.cold_times_ms``): a read of 128 MB before every call, the calls
@@ -247,6 +295,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -267,12 +316,16 @@ QWEN25 = "qwen2.5-14b"
 YI = "yi-34b"
 WHISPER = "whisper-large-v3"
 VLM = "internvl2-2b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+#: llama4's depth on the card: 4 groups of (dense, MoE) of its 24; at 48
+#: layers its ternary weights alone pack to about 80 GB
+LLAMA4_LAYERS = 8
 #: the attention archs served after the recurrent families, in order, each
 #: tree freed before the next is built, and their paths' name prefixes
 ATTN_ARCHS = {QWEN3: "qwen3", GEMMA: "gemma", VLM: "internvl2",
               WHISPER: "whisper", QWEN25: "qwen2p5", YI: "yi"}
 #: the models that admit whole prompts (no chunked prefill)
-WHOLE_PROMPT = (ZAMBA, XLSTM, WHISPER, VLM)
+WHOLE_PROMPT = (ZAMBA, XLSTM, WHISPER, VLM, LLAMA4)
 #: the models whose cross_check also measures both paths against the plain
 #: path run in f64 (``decode.f64_params``)
 YARDSTICK = (ZAMBA, *ATTN_ARCHS)
@@ -285,7 +338,10 @@ YARDSTICK = (ZAMBA, *ATTN_ARCHS)
 #: internvl2 wq | wk, wv | wo | wi, wg | the FFN's wo (equal shapes
 #: merged); whisper one encoder layer and one decoder layer's cross-
 #: attention keys and values (all at M = enc_seq), or one decoder layer
-#: (decode): the attentions' 6 square projections | wi | the FFN's wo
+#: (decode): the attentions' 6 square projections | wi | the FFN's wo;
+#: llama4 one group (a dense block, then an MoE block): both attentions'
+#: wq, wo | their wk, wv | the dense FFN's wi, wg | its wo | the shared
+#: expert's wi, wg | its wo
 LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
                    (6912, 2560): 1},
             QWEN3: {(1024, 2048): 1, (1024, 1024): 2, (2048, 1024): 1,
@@ -300,6 +356,8 @@ LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
                   (8192, 2048): 1},
             WHISPER: {(1280, 1280): 6, (1280, 5120): 1, (5120, 1280): 1},
             MOE_ARCH: {(4096, 4096): 2, (4096, 1024): 2},
+            LLAMA4: {(5120, 5120): 4, (5120, 1024): 4, (5120, 16384): 2,
+                     (16384, 5120): 1, (5120, 8192): 2, (8192, 5120): 1},
             ZAMBA: {(2560, 5120): 12, (5120, 2560): 6, (2560, 2560): 4,
                     (2560, 10240): 2, (10240, 2560): 1},
             XLSTM: {(768, 3072): 1, (1536, 1536): 3, (1536, 768): 1,
@@ -307,6 +365,7 @@ LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
 #: per model, (E, K, N) of its expert stacks and how many one layer has:
 #: wi, wg | wo
 LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1},
+             LLAMA4: {(128, 5120, 8192): 2, (128, 8192, 5120): 1},
              ZAMBA: {}, XLSTM: {}, **{m: {} for m in ATTN_ARCHS}}
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -366,7 +425,9 @@ PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
          "zamba2_batch1": (ZAMBA, 1, "bfloat16", "prior"),
          "xlstm_batch4": (XLSTM, 4, "bfloat16", "prior"),
          **{f"{tag}_batch4": (m, 4, "bfloat16", "prior")
-            for m, tag in ATTN_ARCHS.items()}}
+            for m, tag in ATTN_ARCHS.items()},
+         "llama4_batch4": (LLAMA4, 4, "bfloat16", "prior"),
+         "train_then_serve": (ARCH, 4, "bfloat16", "prior")}
 #: the traffic phase: scenario, arrivals kept (the scenario's lengths are
 #: kept whole), and the stores' budgets: one large enough that nothing is
 #: evicted, and the engine's default, which must evict
@@ -383,6 +444,23 @@ SPEC_NEW_TOKENS = 24
 SPEC_DRAFT_LAYERS = 2
 #: verify against sequential decode: the port's serving tolerance
 VERIFY_ATOL = 2.0 ** -4
+#: the training phase: bitnet's steps, global batch, sequence length,
+#: warmup and peak learning rate; the run checkpoints after step
+#: TRAIN_RESUME_AT - 1, and a second run resumes from there
+TRAIN_STEPS = 10
+#: the periodic checkpoint's interval: after step 5 only, within 10 steps
+TRAIN_RESUME_AT = 6
+TRAIN_RESUME_LAYERS = 4
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_WARMUP = 2
+TRAIN_LR = 3e-4
+#: train_check: depth, batch and sequence length of the card-vs-CPU step,
+#: and its relative bounds (see the module docstring)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = 2
+TRAIN_CHECK_SEQ = 64
+TRAIN_CHECK_RTOL = {"loss": 2.0 ** -10, "grad": 2.0 ** -4, "update": 2.0 ** -1}
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -445,14 +523,23 @@ MODEL_LAYER_ROWS = {
            ("lut_gather", PREFILL_CHUNK, "bfloat16")]
        for m in (QWEN3, GEMMA, QWEN25, YI)},
     VLM: [("lut_gather", 4, "bfloat16"), ("lut_gather", WHOLE_M, "bfloat16")],
+    LLAMA4: [("lut_gather", 4, "bfloat16"),
+             ("lut_gather", WHOLE_M, "bfloat16"),
+             ("grouped_dequant", 1, "bfloat16")],
     WHISPER: [("lut_gather", 4, "bfloat16"), ("lut_gather", 1500, "bfloat16")]}
 
 RECORD: dict = {}
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    RECORD.setdefault("phases", []).append({"phase": phase, **fields})
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print and record one phase line, with ``t``: seconds since the
+    script started (where the run's time goes)."""
+    line = {"phase": phase, **fields, "t": time.perf_counter() - T0}
+    RECORD.setdefault("phases", []).append(line)
+    print(json.dumps(line), flush=True)
 
 
 def gpu_line() -> str:
@@ -512,9 +599,13 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
                         dtype=torch.bfloat16)
     trits = torch.randint(-1, 2, (*lead, n, k), generator=g, device=dev,
                           dtype=torch.int8)
-    # base-3 bytes with the serving artifact's row padding
-    packed = encoding.pad_rows(encoding.pack_base3(trits),
-                               encoding.PACKED_ROW_BYTES)
+    # base-3 bytes with the serving artifact's row padding (an expert stack
+    # packed expert by expert: at llama4's E=128 the whole stack's int32
+    # packing temporaries would take over 40 GB)
+    packed = torch.stack([encoding.pad_rows(encoding.pack_base3(t),
+                                            encoding.PACKED_ROW_BYTES)
+                          for t in trits.reshape(-1, n, k)]).reshape(
+                              *lead, n, -1)
     rate = F32_OPS_PER_S
     experts = e or 1
     packed_bytes = experts * n * -(-k // encoding.TRITS_PER_BYTE)
@@ -1657,12 +1748,12 @@ def layer_check(torch, served, cfg) -> dict:
     logits from the reference's last hidden state likewise."""
     from repro_torch.models.decode import bind_serving_weights, cache_len
     from repro_torch.models.layers import append_attention, rms_norm
-    from repro_torch.models.model import block_ffn, embed_tokens, layer_blocks
+    from repro_torch.models.model import attn_layers, block_ffn, embed_tokens
 
     path = cfg.matmul_policy or "auto"
     cp, cr = cfg, cfg.with_(matmul_policy="fixed:ref")
-    blocks = zip(layer_blocks(bind_serving_weights(served, cp)),
-                 layer_blocks(bind_serving_weights(served, cr)))
+    blocks = zip(attn_layers(bind_serving_weights(served, cp), cp),
+                 attn_layers(bind_serving_weights(served, cr), cr))
     rtol = 0.0 if cfg.act_dtype == "int8" else LAYER_RTOL
     toks, pos, _ = next(_prompt_chunks(torch, cfg))
     CL = cache_len(cfg, 256)
@@ -2201,6 +2292,263 @@ def attention_archs_phase(torch, rows: list, checked: set, flush,
     return paths
 
 
+def llama4_phase(torch, rows: list, checked: set, flush, card) -> dict:
+    """llama4-maverick at full width and ``LLAMA4_LAYERS`` layers: its
+    kernel checks (appended to ``rows`` and ``checked``; the grouped
+    kernels at E=128), its tree built layer by layer (each expert packed as
+    it is drawn), ``llama4_batch4`` served on the prior through whole-prompt
+    admission with ``grouped_dequant`` launched three times per MoE layer
+    per decode step, then ``layer_check`` (every block of the cut depth,
+    the first dense and the first MoE block among them), ``cross_check``
+    (held where no token was rerouted) and ``forced_check`` (the experts
+    teacher-forced to ``fixed:ref``'s, held to 2^-3); the tree freed.
+    Returns ``{path: record}``."""
+    import gc
+
+    cases = kernel_cases(LLAMA4)
+    rows += check_kernels(torch, cases, flush)
+    checked |= set(cases)
+    for name, m, act in MODEL_LAYER_ROWS[LLAMA4]:
+        emit("layer", kernel=name, **layer_summary(rows, name, LLAMA4, m,
+                                                   act))
+    cfg, served = build_model(torch, LLAMA4, LLAMA4_LAYERS)
+    cfg = cfg.with_(matmul_policy="prior")
+    rec = serve_path(torch, served, cfg, LLAMA4, batch=4,
+                     lengths=BATCH4_LENGTHS, new_tokens=16, checked=checked)
+    moe_layers = cfg.n_layers // cfg.moe_every
+    per_step = rec["launches_per_decode_step"]
+    if per_step.get("grouped_dequant") != 3 * moe_layers:
+        raise AssertionError(f"grouped_dequant launched {per_step} times per "
+                             f"decode step, not {3 * moe_layers}")
+    rec["depth_cut"] = {"n_layers": cfg.n_layers, "of": 48,
+                        "groups": moe_layers}
+    emit("serve_llama4_batch4", gpu=card, **rec)
+    torch.cuda.empty_cache()
+    whole_prompt_rows(LLAMA4, [cross_length(LLAMA4)], cfg.dtype, checked,
+                      cfg.matmul_policy)
+    emit("layer_check", **layer_check(torch, served, cfg))
+    emit("cross_check", **cross_check(torch, served, cfg,
+                                      routing_may_differ=True))
+    emit("forced_check", **forced_check(torch, served, cfg))
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"llama4_batch4": rec}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def _tree_pairs(a, b, path=()):
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _tree_pairs(a[k], b[k], path + (k,))
+    else:
+        yield "/".join(path), a, b
+
+
+def _steps_record(records: list[dict]) -> dict:
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = statistics.median(r["ms"] for r in records[1:])
+    return {"steps": [{**r, "tokens_per_s": tokens / r["ms"] * 1e3}
+                      for r in records],
+            "step_ms_median_after_first": ms,
+            "tokens_per_s_median_after_first": tokens / ms * 1e3}
+
+
+def train_bitnet(torch, card) -> tuple[dict, dict]:
+    """bitnet-b1.58-2b at full width and depth in QAT (int8 activation
+    fake-quant) on AdamW: ``train()`` from the seed-0 init for
+    ``TRAIN_STEPS`` steps at global batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens.  Every step must be finite and none skipped.  Returns
+    ``(record, the trained parameters)``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, warmup=TRAIN_WARMUP, lr=TRAIN_LR,
+                device=DEVICE, log_every=1)
+    seconds = time.perf_counter() - t0
+    recs = run["records"]
+    if any(r["skipped"] or not math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"a step was skipped or not finite: {recs}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "optimizer": cfg.optimizer,
+            "quantize_acts": cfg.quantize_acts, "gpu": card,
+            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "warmup": TRAIN_WARMUP, "lr": TRAIN_LR, "seconds": seconds,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **_steps_record(recs)}, run["params"]
+
+
+def train_resume(torch, card) -> dict:
+    """Checkpoint and resume at full width with the depth cut to
+    ``TRAIN_RESUME_LAYERS`` (a checkpoint of the 30-layer state, bf16
+    parameters and f32 AdamW moments, is 27 GB; this one is 9.3 GB):
+    ``train()`` for ``TRAIN_STEPS`` steps with an async checkpoint after
+    step ``TRAIN_RESUME_AT - 1`` and no final one, then a second
+    ``train()`` that restores it and trains to the end.  Deterministic
+    algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set at start): its losses
+    and final parameters must equal the uninterrupted run's bitwise."""
+    import gc
+    import shutil
+    import warnings
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(ARCH).with_(n_layers=TRAIN_RESUME_LAYERS)
+    ckdir = os.path.join(OUT_DIR, "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    runs, seconds = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, every in (("uninterrupted", TRAIN_RESUME_AT),
+                                ("resumed", 10 ** 9)):
+                t0 = time.perf_counter()
+                runs[name] = train(cfg, steps=TRAIN_STEPS, ckpt_dir=ckdir,
+                                   checkpoint_every=every, save_final=False,
+                                   global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, warmup=TRAIN_WARMUP,
+                                   lr=TRAIN_LR, device=DEVICE, log_every=1)
+                seconds[name] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    full, resumed = runs["uninterrupted"], runs["resumed"]
+    shutil.rmtree(ckdir, ignore_errors=True)
+    want = full["history"]
+    if resumed["history"] != want[TRAIN_RESUME_AT:]:
+        raise AssertionError(f"losses: uninterrupted {want}, resumed "
+                             f"{resumed['history']}")
+    differ = [p for p, a, b in _tree_pairs(full["params"], resumed["params"])
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"resumed parameters differ from the "
+                             f"uninterrupted run's at {differ[:5]}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "gpu": card,
+            "checkpoint_after_step": TRAIN_RESUME_AT - 1,
+            "losses": want, "resumed_losses": resumed["history"],
+            "resumed_equal": "bitwise (losses and every parameter)",
+            "seconds": seconds,
+            "nondeterministic_warnings": sorted({str(w.message)[:160]
+                                                 for w in caught})}
+
+
+def _step_on(torch, cfg, params, batch_np, device):
+    """One ``make_train_step`` step with ``compress=True`` on ``device``
+    from copies of ``params``: ``(loss, grads, update)``, the gradients of
+    ``train_loss`` at ``params`` and ``params`` after the step minus
+    before, both moved to the host."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import train_loss
+    from repro_torch.optim import compression
+    from repro_torch.optim.optimizers import (make_optimizer, tree_leaves,
+                                              tree_unflatten)
+
+    p = _tree_to(params, device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+    names = [n for n, _, _ in _tree_pairs(p, p)]
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+    loss = train_loss(tree_unflatten(p, leaves), cfg, batch)[0]
+    grads = dict(zip(names, (g.float().cpu() for g in
+                             torch.autograd.grad(loss, leaves))))
+    del leaves
+    before = _tree_to(p, "cpu")
+    opt = make_optimizer(cfg.optimizer, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                         total=TRAIN_STEPS)
+    step = make_train_step(cfg, opt, compress=True)
+    p, _, _, metrics = step(p, opt.init(p), compression.init_error_state(p),
+                            batch, 1)
+    update = {n: a.float().cpu() - b.float()
+              for n, a, b in _tree_pairs(p, before)}
+    return float(metrics["loss"]), float(loss.detach()), grads, update
+
+
+def train_check(torch) -> dict:
+    """One train step of a ``TRAIN_CHECK_LAYERS``-layer bitnet at full
+    width with gradient compression, on the card and on the CPU from the
+    same weights and batch: the loss, each leaf's gradient and each leaf's
+    update must agree (``TRAIN_CHECK_RTOL``, see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(ARCH).with_(n_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 31), "cpu")
+    batch = SyntheticLMStream(DataConfig(cfg.vocab_size, TRAIN_CHECK_SEQ,
+                                         TRAIN_CHECK_BATCH)).batch(0)
+    t0 = time.perf_counter()
+    card = _step_on(torch, cfg, params, batch, DEVICE)
+    t1 = time.perf_counter()
+    cpu = _step_on(torch, cfg, params, batch, "cpu")
+    t2 = time.perf_counter()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    out = {"loss_card": card[0], "loss_cpu": cpu[0],
+           "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+           "grad_rel": {n: rel(card[2][n], cpu[2][n]) for n in cpu[2]},
+           "update_rel": {n: rel(card[3][n], cpu[3][n]) for n in cpu[3]},
+           "update_sign_agree": {n: float(np.mean(
+               (torch.sign(card[3][n]) == torch.sign(cpu[3][n])).numpy()))
+               for n in cpu[3]}}
+    worst = {"loss": out["loss_rel"], "grad": max(out["grad_rel"].values()),
+             "update": max(out["update_rel"].values())}
+    for key, value in worst.items():
+        if not value <= TRAIN_CHECK_RTOL[key]:
+            raise AssertionError(f"train_check: {key} relative difference "
+                                 f"{value} > {TRAIN_CHECK_RTOL[key]}: {out}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "compress": True,
+            "batch": TRAIN_CHECK_BATCH, "seq_len": TRAIN_CHECK_SEQ,
+            "card_seconds": t1 - t0, "cpu_seconds": t2 - t1,
+            "worst": worst, "rtol": TRAIN_CHECK_RTOL, **out}
+
+
+def train_phase(torch, checked: set, card: str) -> dict:
+    """``train_bitnet``, ``train_resume``, ``train_check``, then
+    ``train_then_serve``: the
+    trained 30-layer tree packed by ``decode.quantize_for_serving`` and
+    served at batch 4 on the prior through the hand kernels, with
+    ``cross_check`` against ``fixed:ref``.  Returns ``{path: record}``."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.decode import quantize_for_serving
+
+    rec, params = train_bitnet(torch, card)
+    emit("train_bitnet", **rec)
+    emit("train_resume", **train_resume(torch, card))
+    emit("train_check", gpu=card, **train_check(torch))
+    # on the prior: bitnet's autotune measured these shapes earlier
+    cfg = get_config(ARCH).with_(matmul_policy="prior")
+    served = quantize_for_serving(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = serve_path(torch, served, cfg, ARCH, batch=4,
+                      lengths=BATCH4_LENGTHS, new_tokens=16, checked=checked)
+    emit("serve_train_then_serve", gpu=card, **path)
+    emit("cross_check", **cross_check(torch, served, cfg))
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_then_serve": path}
+
+
 def packed_gb(tree) -> float:
     """GB of packed ternary bytes in a serving tree."""
     if isinstance(tree, dict):
@@ -2210,20 +2558,25 @@ def packed_gb(tree) -> float:
     return 0.0
 
 
-def build_model(torch, model: str):
+def build_model(torch, model: str, n_layers: int | None = None):
     """The model's serving tree at full width, built layer by layer from the
-    seed; emits the init line."""
+    seed (at ``n_layers`` where its depth is cut); emits the init line,
+    with the peak device memory of the build."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.decode import init_serving_params
 
     cfg = get_config(model)
+    full = cfg.n_layers
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     served = init_serving_params(cfg, gen, DEVICE)
     torch.cuda.synchronize()
-    emit("init", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         enc_layers=cfg.enc_layers, n_experts=cfg.n_experts,
+    emit("init", arch=cfg.name, n_layers=cfg.n_layers, full_depth=full,
+         d_model=cfg.d_model, enc_layers=cfg.enc_layers,
+         n_experts=cfg.n_experts,
          seconds=time.perf_counter() - t0,
          packed_gb=packed_gb(served),
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -2234,6 +2587,9 @@ def build_model(torch, model: str):
 def main() -> int:
     import gc
 
+    # cuBLAS reads it when it first makes a handle: the training phase's
+    # deterministic algorithms need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2388,7 +2744,13 @@ def main() -> int:
 
     # 6. the other attention archs (dense, VLM, encoder-decoder)
     paths.update(attention_archs_phase(torch, rows, checked, flush, card))
+
+    # 7. llama4-maverick's dense/MoE interleave at a cut depth
+    paths.update(llama4_phase(torch, rows, checked, flush, card))
     del flush
+
+    # 8. training: bitnet at full width and depth, then served
+    paths.update(train_phase(torch, checked, card))
 
     kernels = []
     for name, (src, replaces, model, m, act) in SOURCES.items():

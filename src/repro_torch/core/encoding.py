@@ -11,12 +11,14 @@ The port's copy of the reference encodings, byte for byte:
 
 Base-3 bytes hold 5 trits each (1.6 bits/weight); byte 0 decodes to five
 ``-1`` trits, so a kernel that reads past the logical width must zero the
-matching activations.
+matching activations.  The naive 2-bit packing (:func:`pack_2bit`, four
+trits a byte) is the baseline of the paper's 20% density claim.
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -35,6 +37,15 @@ def idx_bits(mu: int) -> int:
 def key_bits(mu: int) -> int:
     """Exact key width: index bits + symmetry bit."""
     return idx_bits(mu) + 1
+
+
+def key_bits_paper(mu: int) -> int:
+    """The paper's §III-D width formula, ceil(log2(T)) + 1."""
+    return max(1, int(np.ceil(np.log2(table_size(mu))))) + 1
+
+
+def bits_per_weight(mu: int, paper_formula: bool = False) -> float:
+    return (key_bits_paper(mu) if paper_formula else key_bits(mu)) / mu
 
 
 def key_dtype(mu: int) -> torch.dtype:
@@ -78,6 +89,14 @@ def decode_groups(keys: torch.Tensor, mu: int) -> torch.Tensor:
     idx = (k & ((1 << ib) - 1)).long()
     sign = torch.where(sym == 1, -1, 1).to(torch.int8)[..., None]
     return C[idx] * sign
+
+
+def split_key(keys: torch.Tensor, mu: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(sym, idx) int32 views of a key array."""
+    ib = idx_bits(mu)
+    k = keys.to(torch.int32) & 0xFFFF
+    return k >> ib, k & ((1 << ib) - 1)
 
 
 def encode_weight_matrix(w_t: torch.Tensor, mu: int) -> torch.Tensor:
@@ -146,3 +165,48 @@ def unpack_base3_to(packed: torch.Tensor, n: int,
     tbl = torch.from_numpy(_base3_decode_table()).to(packed.device, dtype)
     trits = tbl[packed.long()]
     return trits.reshape(*packed.shape[:-1], -1)[..., :n]
+
+
+def pack_2bit(w_t: torch.Tensor) -> torch.Tensor:
+    """Naive 2-bit packing, four trits a byte (``trit + 1`` at bits 0, 2, 4,
+    6) along the last axis, zero-padded to a multiple of 4."""
+    *lead, N = w_t.shape
+    pad = (-N) % 4
+    if pad:
+        w_t = torch.nn.functional.pad(w_t, (0, pad))
+    grp = (w_t.reshape(*lead, -1, 4).to(torch.int32) + 1) & 0b11
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32, device=w_t.device)
+    return (grp << shifts).sum(-1).to(torch.uint8)
+
+
+def unpack_2bit(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """uint8 [..., ceil(n/4)] → int8 trits [..., n]."""
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
+                          device=packed.device)
+    trits = ((packed.to(torch.int32)[..., None] >> shifts) & 0b11) - 1
+    return trits.reshape(*packed.shape[:-1], -1)[..., :n].to(torch.int8)
+
+
+@dataclass(frozen=True)
+class PackedTernary:
+    """A ternary weight matrix in deployment form: ``data`` uint8 base-3
+    bytes ``[O, ceil(N/5)]`` packed along the input (reduction) dim, the
+    absmean ``scale`` and the logical ``(O, N)`` shape."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
+    shape: tuple[int, int]
+
+    @property
+    def bits_per_weight(self) -> float:
+        return self.data.numel() * 8 / (self.shape[0] * self.shape[1])
+
+
+def pack_ternary_matrix(w_t: torch.Tensor,
+                        scale: torch.Tensor) -> PackedTernary:
+    O, N = w_t.shape
+    return PackedTernary(data=pack_base3(w_t), scale=scale, shape=(O, N))
+
+
+def unpack_ternary_matrix(p: PackedTernary) -> torch.Tensor:
+    return unpack_base3(p.data, p.shape[1])

@@ -1,9 +1,17 @@
-"""BitNet b1.58 ternary quantization (paper §II-A), forward semantics only.
+"""BitNet b1.58 ternary quantization (paper §II-A).
 
 Weights: per-tensor absmean scale, then round-to-nearest ternary.
 Activations: per-token absmax INT8.  Both follow the reference arithmetic
 step for step (the scale in the weight's dtype, the activation math in f32),
 so trits and int8 codes agree with it exactly.
+
+For QAT the fake-quantizers pass gradients straight through: the
+``autograd.Function`` forms (:func:`ste_ternarize`,
+:func:`ste_quantize_activations`) with an identity backward, and the
+stop-gradient forms the model's linears use (:func:`fake_quant_ternary`,
+:func:`fake_quant_acts`), ``w + (wq - w).detach()``, which round as the
+reference's ``w + stop_gradient(wq - w)`` does (in bf16 that is not
+bitwise ``wq``).
 """
 
 from __future__ import annotations
@@ -34,19 +42,38 @@ def dequantize(w_t: torch.Tensor, scale: torch.Tensor,
     return w_t.to(dtype) * scale.to(dtype)
 
 
+class _SteTernarize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        w_t, scale = ternarize(w)
+        return dequantize(w_t, scale, dtype=w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_ternarize(w: torch.Tensor) -> torch.Tensor:
+    """Fake-quantized weights for QAT: forward ``dequant(ternarize(w))``,
+    backward the identity (the straight-through estimator)."""
+    return _SteTernarize.apply(w)
+
+
 def fake_quant_ternary(w: torch.Tensor, axis=None) -> torch.Tensor:
-    """Forward value of the straight-through weight fake-quant,
-    ``w + (dequant(ternarize(w)) - w)`` rounded as the reference rounds it."""
-    w_t, scale = ternarize(w, axis=axis)
+    """Straight-through weight fake-quant via the stop-gradient identity,
+    ``w + (dequant(ternarize(w)) - w).detach()`` (``axis`` for per-channel
+    scales, e.g. per expert on stacked MoE weights)."""
+    w_t, scale = ternarize(w.detach(), axis=axis)
     wq = dequantize(w_t, scale, dtype=w.dtype)
-    return w + (wq - w)
+    return w + (wq - w).detach()
 
 
 def fake_quant_acts(x: torch.Tensor) -> torch.Tensor:
-    """Forward value of the straight-through INT8 per-token fake-quant."""
-    x_q, scale = quantize_activations_int8(x)
+    """Straight-through INT8 per-token activation fake-quant (the
+    stop-gradient identity)."""
+    x_q, scale = quantize_activations_int8(x.detach())
     xq = (x_q.to(torch.float32) * scale).to(x.dtype)
-    return x + (xq - x)
+    return x + (xq - x).detach()
 
 
 def quantize_activations_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,3 +93,38 @@ def quantize_activations_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     q = torch.where(torch.isnan(q), 0.0, q)
     x_q = q.clamp(-127, 127).to(torch.int8)
     return x_q, scale
+
+
+class _SteQuantizeActivations(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x_q, scale = quantize_activations_int8(x)
+        return (x_q.to(torch.float32) * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_quantize_activations(x: torch.Tensor) -> torch.Tensor:
+    """Fake-quantized INT8 activations, backward the identity."""
+    return _SteQuantizeActivations.apply(x)
+
+
+def fake_quant_matmul(x: torch.Tensor, w: torch.Tensor,
+                      quantize_acts: bool = True) -> torch.Tensor:
+    """QAT forward of a linear layer, ``act_q(x) @ ternary_q(w)``, both
+    quantizers straight-through, so full-precision gradients reach ``x``
+    and the master weight ``w``."""
+    xq = ste_quantize_activations(x) if quantize_acts else x
+    return xq @ ste_ternarize(w)
+
+
+def ternary_weight_stats(w_t: torch.Tensor,
+                         dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Fractions of -1, 0 and +1 among the trits ``w_t`` (their sparsity
+    drives the paper's savings)."""
+    w_t = w_t.to(torch.int32)
+    n = w_t.numel()
+    return {name: ((w_t == v).sum() / n).to(dtype)
+            for name, v in (("neg", -1), ("zero", 0), ("pos", 1))}

@@ -18,8 +18,16 @@ Usage (on the card):
       [--scenario chat|rag|agentic|code]
   python -m repro_torch.launch.profile --arch phi3.5-moe-42b-a6.6b --batch 4
   python -m repro_torch.launch.profile --arch zamba2-2.7b --batch 4
+  python -m repro_torch.launch.profile --arch llama4-maverick-400b-a17b \
+      --n-layers 8 --batch 4
+  python -m repro_torch.launch.profile --arch bitnet-b1.58-2b --train \
+      --global-batch 8 --seq-len 512 --steps 3
 
-(zamba2-2.7b, xlstm-125m, whisper-large-v3 and internvl2-2b admit each
+``--train`` traces QAT train steps (``launch.train.make_train_step``)
+instead: the same breakdown per step, tokens/s and the peak memory.
+
+(zamba2-2.7b, xlstm-125m, whisper-large-v3, internvl2-2b and
+llama4-maverick admit each
 slot's prompt through one whole-prompt prefill; each slot's prompt is 8
 tokens, or internvl2's 64 vision positions.)
 """
@@ -75,6 +83,52 @@ def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict
             state, _, _ = engine.sched_step(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return _breakdown(prof, wall, steps)
+
+
+def profile_train(cfg, device, steps: int, global_batch: int, seq_len: int,
+                  seed: int = 0) -> dict:
+    """Two warm-up QAT train steps (``launch.train.make_train_step``, the
+    config's optimizer) from a seeded init, then ``steps`` traced ones:
+    the per-step breakdown, tokens/s and the peak device memory."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import make_optimizer
+
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device)
+    opt = make_optimizer(cfg.optimizer, warmup=2, total=steps + 2)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    data = SyntheticLMStream(DataConfig(cfg.vocab_size, seq_len,
+                                        global_batch))
+
+    def run(i):
+        nonlocal params, state
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(i).items()}
+        params, state, _, _ = step_fn(params, state, {}, batch, i)
+
+    for i in range(2):
+        run(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 2 + steps):
+            run(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = _breakdown(prof, wall, steps)
+    out.pop("hand_kernel_launches_per_step")
+    return {**out, "global_batch": global_batch, "seq_len": seq_len,
+            "tokens_per_s": global_batch * seq_len * steps / wall,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def _breakdown(prof, wall: float, steps: int) -> dict:
     kernels = [e for e in prof.key_averages() if _on_device(e)]
     busy_us = sum(_self_device_us(e) for e in kernels)
     top = sorted(kernels, key=_self_device_us, reverse=True)[:10]
@@ -104,12 +158,29 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--scenario", default=None,
                     help="size max_len from this workload's geometry, as "
                     "launch.serve --scenario does (default 256)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (llama4-maverick does not fit one "
+                    "card at its 48)")
+    ap.add_argument("--train", action="store_true",
+                    help="trace QAT train steps instead of decode steps")
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=512)
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.act_dtype != "none":
         cfg = cfg.with_(act_dtype=args.act_dtype)
+    if args.n_layers:
+        cfg = cfg.with_(n_layers=args.n_layers)
+    if args.train:
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers, "train": True,
+               "optimizer": cfg.optimizer,
+               "gpu": torch.cuda.get_device_name(device),
+               **profile_train(cfg, device, args.steps, args.global_batch,
+                               args.seq_len, args.seed)}
+        print(json.dumps(out), flush=True)
+        return out
     gen = torch.Generator(device=device).manual_seed(args.seed)
     served = init_serving_params(cfg, gen, device)
     max_len = 256
@@ -121,7 +192,8 @@ def main(argv: list[str] | None = None) -> dict:
     engine = DecodeEngine(served, cfg, batch_size=args.batch,
                           max_len=max_len, matmul_policy=args.policy,
                           device=device)
-    out = {"arch": cfg.name, "batch": args.batch, "max_len": max_len,
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": args.batch,
+           "max_len": max_len,
            "act_dtype": cfg.act_dtype,
            "policy": args.policy or "auto",
            "gpu": torch.cuda.get_device_name(device),

@@ -1,5 +1,6 @@
 """Serving-side paths of the families the port serves (attention, dense
-and MoE, with whisper's encoder-decoder and internvl2's vision prefix;
+and MoE, llama4's dense/MoE interleave, with whisper's encoder-decoder and
+internvl2's vision prefix;
 zamba2's Mamba2 + shared attention; xlstm's mLSTM/sLSTM): ternary
 weight packing, the KV ring and recurrent-state caches, prefill (whole,
 into one slot of a live cache, and chunked for the attention family),
@@ -44,10 +45,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (acc_dtype, append_attention,
                                        attention, ffn, mask_padded_vocab,
                                        moe_capacity, ring_writes, rms_norm)
-from repro_torch.models.model import (Params, block_ffn, check_supported,
-                                      embed_tokens, init_layer, init_shared,
-                                      init_top, layer_blocks, layer_stacks,
-                                      lm_head_w, sinusoidal_position_at,
+from repro_torch.models.model import (Params, attn_layers, block_ffn,
+                                      check_supported, embed_tokens,
+                                      init_layer, init_shared, init_top,
+                                      layer_blocks, layer_stacks, lm_head_w,
+                                      sinusoidal_position_at,
                                       sinusoidal_positions, stack_layers,
                                       whisper_cross, whisper_dec_block,
                                       whisper_encode, with_positions)
@@ -94,6 +96,15 @@ def _pack_leaf(leaf: dict) -> dict:
     return out
 
 
+def _pack_experts(draw, n: int) -> dict:
+    """An expert stack packed one expert at a time as ``draw`` makes each
+    ``[din, dout]`` matrix: the bytes and per-expert scales of
+    :func:`_pack_leaf` on the whole stack, without its bf16 weights."""
+    parts = [_pack_matrix(draw()) for _ in range(n)]
+    return {"packed": torch.stack([pk for pk, _ in parts]),
+            "scale": torch.stack([sc for _, sc in parts])}
+
+
 def quantize_for_serving(p: Params, cfg: ModelConfig) -> Params:
     """Training params → packed-ternary serving params (the MoE router, the
     embedding and the LM head stay float)."""
@@ -114,14 +125,17 @@ def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
     """``quantize_for_serving(init_params(cfg, generator, device), cfg)``
     without ever holding the bf16 tree: the same draws, one layer at a
     time, each layer packed and its bf16 weights freed before the next is
-    drawn.  Absmean scales are per layer (per expert in MoE stacks), so the
-    result is the same, byte for byte.  Peak memory is the packed tree plus
-    one layer's bf16 weights and its packing temporaries."""
+    drawn, and within an MoE layer each expert packed as it is drawn
+    (:func:`_pack_experts`).  Absmean scales are per layer (per expert in
+    MoE stacks), so the result is the same, byte for byte.  Peak memory is
+    the packed tree plus one layer's weights outside its expert stacks,
+    one expert's bf16 matrix and the packing temporaries."""
     check_supported(cfg)
     p = init_top(cfg, generator, device)
     for name, depth in layer_stacks(cfg).items():
         p[name] = stack_layers([
-            quantize_for_serving(init_layer(cfg, generator, device, name), cfg)
+            quantize_for_serving(init_layer(cfg, generator, device, name,
+                                            expert_leaf=_pack_experts), cfg)
             for _ in range(depth)])
     if cfg.block_pattern == "zamba2":
         p["shared_attn"] = quantize_for_serving(
@@ -165,13 +179,18 @@ def packed_bits_per_weight(p: Params) -> float:
 
 
 def _logical_k(cfg: ModelConfig, path: tuple) -> int:
-    """In-features of the packed projection at ``path`` (its parent and
-    leaf names) in a block: the packed rows are padded past it, and byte 0
-    decodes to trits, so a wrong width would read padding as weights."""
+    """In-features of the packed projection at ``path`` (the layer stack's
+    name, then the keys down to the leaf, e.g. ``("dense_blocks", "ffn",
+    "wo")``): the packed rows are padded past it, and byte 0 decodes to
+    trits, so a wrong width would read padding as weights.  llama4's dense
+    blocks have FFNs of width ``dense_ff``; its shared expert and every
+    other FFN and expert stack have ``d_ff``."""
     parent, name = path[-2], path[-1]
     d = cfg.d_model
     if parent in ("attn", "self_attn", "cross_attn"):
         return cfg.q_dim if name == "wo" else d
+    if parent == "ffn" and path[0] == "dense_blocks":
+        return (cfg.dense_ff or cfg.d_ff) if name == "wo" else d
     if parent in ("ffn", "moe", "shared"):
         return cfg.d_ff if name == "wo" else d
     if parent == "mixer":                      # Mamba2: wz, wx | wo
@@ -184,8 +203,9 @@ def _logical_k(cfg: ModelConfig, path: tuple) -> int:
 
 
 def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
-    """The serving tree with each layer stack (``p["blocks"]``, whisper's
-    encoder and decoder stacks, or the recurrent families' stacks) split
+    """The serving tree with each layer stack (``p["blocks"]``, llama4's
+    ``dense_blocks`` and ``moe_blocks``, whisper's encoder and decoder
+    stacks, or the recurrent families' stacks) split
     into per-layer dicts whose packed
     leaves carry a bound :class:`TernaryWeight` under ``"tw"``, or, for MoE
     expert stacks, a :class:`GroupedTernaryWeight` under ``"gw"``, so each
@@ -206,9 +226,9 @@ def bind_serving_weights(p: Params, cfg: ModelConfig) -> Params:
 
     out = dict(p)
     for name in layer_stacks(cfg):
-        out[name] = [bind(b, ()) for b in layer_blocks(p, name)]
+        out[name] = [bind(b, (name,)) for b in layer_blocks(p, name)]
     if "shared_attn" in p:
-        out["shared_attn"] = bind(p["shared_attn"], ())
+        out["shared_attn"] = bind(p["shared_attn"], ("shared_attn",))
     return out
 
 
@@ -492,7 +512,7 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, s_max: int):
         cache["cross_k"] = torch.stack(cks).to(cache["cross_k"].dtype)
         cache["cross_v"] = torch.stack(cvs).to(cache["cross_v"].dtype)
     elif cfg.block_pattern == "attn":
-        for blk in layer_blocks(p):
+        for blk in attn_layers(p, cfg):
             hn = rms_norm(blk["ln1"], x, offset=cfg.rmsnorm_offset)
             a, (k, v) = attention(blk["attn"], hn, cfg, positions=positions,
                                   window=cfg.window, return_kv=True)
@@ -854,7 +874,7 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     elif cfg.block_pattern == "attn":
         old_pos = cache["pos"][0].clone()
         ks, vs = [], []
-        for i, blk in enumerate(layer_blocks(p)):
+        for i, blk in enumerate(attn_layers(p, cfg)):
             hn = rms_norm(blk["ln1"], h, offset=cfg.rmsnorm_offset)
             a, (k, v) = append_attention(blk["attn"], hn, cfg,
                                          positions=positions,

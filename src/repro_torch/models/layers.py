@@ -1,5 +1,6 @@
 """Shared neural blocks of the attention family: norms, RoPE, ternary-aware
-linears, GQA attention, gated FFNs and the top-k MoE FFN.
+linears, GQA attention, gated FFNs, the top-k MoE FFN (with llama4's shared
+expert) and the chunked cross-entropy loss.
 
 Every projection goes through :func:`linear`, which dispatches on the leaf:
 
@@ -21,10 +22,12 @@ to bf16, so the two agree to bf16 tolerance.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.quantization import (fake_quant_acts, fake_quant_ternary,
                                            quantize_activations_int8)
@@ -323,23 +326,41 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
                    / cfg.n_experts), 1)
 
 
-def init_moe(g: torch.Generator, cfg: ModelConfig,
-             device: torch.device) -> Params:
+def stack_experts(draw, n: int) -> Params:
+    """``{"w": [n, din, dout]}`` filled with ``n`` calls of ``draw``, one
+    expert's ``[din, dout]`` matrix each."""
+    first = draw()
+    w = torch.empty((n, *first.shape), dtype=first.dtype, device=first.device)
+    w[0] = first
+    for e in range(1, n):
+        w[e] = draw()
+    return {"w": w}
+
+
+def init_moe(g: torch.Generator, cfg: ModelConfig, device: torch.device,
+             expert_leaf=None) -> Params:
     """One layer's MoE parameters, drawn from ``g`` on ``device`` in the
     reference's shapes, dtypes and scales: an f32 router ``[D, E]`` and
     bf16 expert stacks ``[E, din, dout]`` (plus a shared expert where the
-    config has one)."""
+    config has one).  Each stack is drawn one expert at a time and built by
+    ``expert_leaf(draw, E)`` (default :func:`stack_experts`), so a caller
+    may pack each expert as it is drawn and never hold the bf16 stack
+    (``decode.init_serving_params``)."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     s = 1.0 / math.sqrt(d)
+    expert_leaf = expert_leaf or stack_experts
 
     def normal(shape, scale, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, dtype=dtype,
                            device=device) * scale
 
+    def experts(shape, scale):
+        return expert_leaf(lambda: normal(shape, scale), E)
+
     p = {"router": {"w": normal((d, E), s, torch.float32)},
-         "wi": {"w": normal((E, d, f), s)},
-         "wg": {"w": normal((E, d, f), s)},
-         "wo": {"w": normal((E, f, d), 1.0 / math.sqrt(f))}}
+         "wi": experts((d, f), s),
+         "wg": experts((d, f), s),
+         "wo": experts((f, d), 1.0 / math.sqrt(f))}
     if cfg.moe_shared_expert:
         p["shared"] = {"wi": {"w": normal((d, f), s)},
                        "wo": {"w": normal((f, d), 1.0 / math.sqrt(f))}}
@@ -454,3 +475,41 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
         return logits
     iota = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(iota < vocab, logits, -1e30)
+
+
+def _ce_chunk(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor, vocab: int):
+    """One ``[B, chunk]`` slab's masked NLL sum and mask sum."""
+    logits = mask_padded_vocab((x @ head_w).to(torch.float32), vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor, chunk: int,
+                    vocab: int | None = None) -> torch.Tensor:
+    """Next-token CE without materializing ``[B, S, V]`` logits: the
+    sequence goes in chunks of ``chunk`` positions (the tail zero-padded,
+    mask 0), each projected to the vocab and reduced to its NLL sum, and
+    recomputed in backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``), so peak memory is one ``[B, chunk, V]`` slab.
+    Returns the masked mean, f32."""
+    B, S, _ = x.shape
+    vocab = vocab or head_w.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    run = _ce_chunk
+    if torch.is_grad_enabled():
+        run = functools.partial(torch.utils.checkpoint.checkpoint, _ce_chunk,
+                                use_reentrant=False)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S + pad, chunk):
+        nll, n = run(x[:, s0:s0 + chunk], head_w, labels[:, s0:s0 + chunk],
+                     mask[:, s0:s0 + chunk], vocab)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)

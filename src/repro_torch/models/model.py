@@ -1,7 +1,9 @@
 """Top-level model API: init and the forward trunk of the families the
 port serves.
 
-  * ``attn``: dense and MoE (an expert FFN on every layer) decoder-only LMs;
+  * ``attn``: dense and MoE (an expert FFN on every layer) decoder-only LMs,
+    and llama4's interleave (groups of ``moe_every - 1`` dense blocks of
+    width ``dense_ff``, then one MoE block with a shared expert);
   * ``zamba2``: a Mamba2 backbone with one shared attention block applied
     after every ``attn_every`` Mamba2 layers;
   * ``xlstm``: alternating mLSTM / sLSTM blocks;
@@ -12,7 +14,8 @@ port serves.
     embeddings overwrite the first prompt positions.
 
 Parameters keep the reference layout: a nested dict whose per-layer leaves
-are stacked on a leading layer axis (``p["blocks"]``; zamba2's
+are stacked on a leading layer axis (``p["blocks"]``; llama4's
+``p["dense_blocks"]`` and ``p["moe_blocks"]``; zamba2's
 ``p["mamba_blocks"]`` beside the unstacked ``p["shared_attn"]``; xlstm's
 ``p["mlstm_blocks"]`` and ``p["slstm_blocks"]``; whisper's
 ``p["enc_blocks"]`` and ``p["dec_blocks"]`` beside ``p["enc_norm"]``), so
@@ -25,15 +28,17 @@ carries ``"moe"`` in place of ``"ffn"``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention, cross_kv, ffn, init_moe,
-                                       moe_ffn, rms_norm)
+from repro_torch.models.layers import (attention, chunked_ce_loss, cross_kv,
+                                       ffn, init_moe, moe_ffn, rms_norm)
 
 Params = dict[str, Any]
 
@@ -54,15 +59,14 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name} (block_pattern={cfg.block_pattern}, frontend="
             f"{cfg.frontend}, encoder layers {cfg.enc_layers}) is not ported "
             f"yet")
-    if cfg.n_experts and cfg.moe_every > 1:
-        raise NotImplementedError(
-            f"{cfg.name} interleaves dense and MoE layers (moe_every="
-            f"{cfg.moe_every}, the dense_blocks stack): not ported yet (a "
-            f"later slice brings the dense_blocks interleave)")
 
 
 def layer_stacks(cfg: ModelConfig) -> dict[str, int]:
-    """The stacked entries of ``cfg``'s parameter tree and their depths."""
+    """The stacked entries of ``cfg``'s parameter tree and their depths
+    (llama4's interleave: ``dense_blocks`` and ``moe_blocks``)."""
+    if cfg.n_experts and cfg.moe_every > 1:
+        moe = cfg.n_layers // cfg.moe_every
+        return {"dense_blocks": cfg.n_layers - moe, "moe_blocks": moe}
     if cfg.is_encdec:
         return {"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.n_layers}
     if cfg.block_pattern == "zamba2":
@@ -113,38 +117,48 @@ def _init_attn(cfg: ModelConfig, g: torch.Generator, dev) -> Params:
     return attn
 
 
-def _init_ffn(cfg: ModelConfig, g: torch.Generator, dev) -> Params:
-    D = cfg.d_model
-    f = {"wi": _lin(g, D, cfg.d_ff, dev), "wo": _lin(g, cfg.d_ff, D, dev)}
+def _init_ffn(cfg: ModelConfig, g: torch.Generator, dev,
+              d_ff: int | None = None) -> Params:
+    D, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": _lin(g, D, f, dev), "wo": _lin(g, f, D, dev)}
     if cfg.ffn_gated:
-        f["wg"] = _lin(g, D, cfg.d_ff, dev)
-    return f
+        p["wg"] = _lin(g, D, f, dev)
+    return p
 
 
-def _init_attn_block(cfg: ModelConfig, g: torch.Generator, dev) -> Params:
-    """An attention block: attention, then the FFN or the MoE."""
+def _init_attn_block(cfg: ModelConfig, g: torch.Generator, dev, *,
+                     moe: bool, d_ff: int | None = None,
+                     expert_leaf=None) -> Params:
+    """An attention block: attention, then the MoE or the FFN (of width
+    ``d_ff``, default ``cfg.d_ff``)."""
     D = cfg.d_model
     blk = {"ln1": _ones(D, dev), "attn": _init_attn(cfg, g, dev),
            "ln2": _ones(D, dev)}
-    if cfg.n_experts:
-        blk["moe"] = init_moe(g, cfg, dev)
+    if moe:
+        blk["moe"] = init_moe(g, cfg, dev, expert_leaf=expert_leaf)
     else:
-        blk["ffn"] = _init_ffn(cfg, g, dev)
+        blk["ffn"] = _init_ffn(cfg, g, dev, d_ff)
     return blk
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator,
                device: str | torch.device = "cuda",
-               stack: str = "blocks") -> Params:
+               stack: str = "blocks", expert_leaf=None) -> Params:
     """One layer of the stack ``stack`` (no layer axis), drawn from
     ``generator`` in a fixed order: an attention block (attention, then the
-    FFN or the MoE), a whisper encoder block (the same with its FFN), a
-    whisper decoder block (self-attention, cross-attention, FFN), a Mamba2
-    layer (its norm, then its mixer) or an mLSTM/sLSTM layer (its norm,
-    then its cell)."""
+    FFN or the MoE; llama4's ``dense_blocks`` with an FFN of width
+    ``dense_ff``, its ``moe_blocks`` with the MoE), a whisper encoder block
+    (the same with its FFN), a whisper decoder block (self-attention,
+    cross-attention, FFN), a Mamba2 layer (its norm, then its mixer) or an
+    mLSTM/sLSTM layer (its norm, then its cell).  ``expert_leaf`` builds
+    each MoE expert stack from its per-expert draws
+    (``layers.init_moe``)."""
     g, dev = generator, torch.device(device)
-    if stack in ("blocks", "enc_blocks"):
-        return _init_attn_block(cfg, g, dev)
+    if stack == "dense_blocks":
+        return _init_attn_block(cfg, g, dev, moe=False, d_ff=cfg.dense_ff)
+    if stack in ("blocks", "enc_blocks", "moe_blocks"):
+        return _init_attn_block(cfg, g, dev, moe=bool(cfg.n_experts),
+                                expert_leaf=expert_leaf)
     ln = _ones(cfg.d_model, dev)
     if stack == "dec_blocks":
         return {"ln1": ln, "self_attn": _init_attn(cfg, g, dev),
@@ -164,7 +178,7 @@ def init_shared(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> Params:
     """zamba2's shared attention+FFN block (one, unstacked), drawn after
     the Mamba2 stack as the reference draws it."""
-    return _init_attn_block(cfg, generator, torch.device(device))
+    return _init_attn_block(cfg, generator, torch.device(device), moe=False)
 
 
 def stack_layers(layers: list[Params]) -> Params:
@@ -287,11 +301,15 @@ def whisper_encode(p: Params, cfg: ModelConfig,
     h = with_positions(frames, sinusoidal_positions(S, cfg.d_model,
                                                     frames.device)[None])
     positions = torch.arange(S, device=frames.device)
+
+    def block(blk, x):
+        x = x + attention(blk["attn"], rms_norm(blk["ln1"], x), cfg,
+                          positions=positions, kind="full", use_rope=False)
+        return x + ffn(blk["ffn"], rms_norm(blk["ln2"], x), cfg)
+
+    block = _maybe_remat(block, cfg)
     for blk in layer_blocks(p, "enc_blocks"):
-        hn = rms_norm(blk["ln1"], h)
-        h = h + attention(blk["attn"], hn, cfg, positions=positions,
-                          kind="full", use_rope=False)
-        h = h + ffn(blk["ffn"], rms_norm(blk["ln2"], h), cfg)
+        h = block(blk, h)
     return rms_norm(p["enc_norm"], h)
 
 
@@ -338,22 +356,66 @@ def _attn_block(blk: Params, x: torch.Tensor, cfg: ModelConfig, positions,
     return x + f, aux
 
 
+def layer_groups(p: Params, cfg: ModelConfig) -> list[list[Params]]:
+    """llama4's groups in execution order: each ``moe_every - 1`` blocks of
+    ``p["dense_blocks"]``, then one of ``p["moe_blocks"]``."""
+    dense, moe = layer_blocks(p, "dense_blocks"), layer_blocks(p, "moe_blocks")
+    k = cfg.moe_every - 1
+    return [dense[g * k:(g + 1) * k] + [blk] for g, blk in enumerate(moe)]
+
+
+def attn_layers(p: Params, cfg: ModelConfig) -> list[Params]:
+    """The attention family's blocks in execution order, the KV cache's
+    layer order: ``p["blocks"]``, or llama4's groups one after another."""
+    if "dense_blocks" in p:
+        return [blk for grp in layer_groups(p, cfg) for blk in grp]
+    return layer_blocks(p)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``) when ``cfg.remat`` is set and autograd
+    is recording; ``fn`` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def _attn_trunk(p: Params, cfg: ModelConfig, h: torch.Tensor, positions,
                 window: int):
+    """The attention stack → ``(h, aux)``, each block rematerialized under
+    ``cfg.remat``, and llama4's groups each as a whole as well (as the
+    reference: without it every group's MoE dispatch buffers stay live for
+    backward)."""
+    block = _maybe_remat(
+        lambda blk, x: _attn_block(blk, x, cfg, positions, window), cfg)
+
+    def run(blocks, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in blocks:
+            x, a = block(blk, x)
+            aux = aux + a
+        return x, aux
+
+    if "dense_blocks" not in p:
+        return run(layer_blocks(p), h)
+    group = _maybe_remat(run, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for blk in layer_blocks(p):
-        h, a = _attn_block(blk, h, cfg, positions, window)
+    for blocks in layer_groups(p, cfg):
+        h, a = group(blocks, h)
         aux = aux + a
     return h, aux
 
 
 def forward(p: Params, cfg: ModelConfig, batch: dict, *,
             window: int | None = None):
-    """Training/prefill trunk of the attention family (whisper's
-    encoder-decoder with ``batch["frames"]``, a VLM with
-    ``batch["vision_embeds"]``) → (hidden [B, S, D], aux_loss).  The
-    recurrent families run through ``decode.prefill`` and
-    ``decode.decode_step`` only (their training trunk is not ported)."""
+    """Training/prefill trunk of the attention family (llama4's interleave;
+    whisper's encoder-decoder with ``batch["frames"]``, a VLM with
+    ``batch["vision_embeds"]``) → (hidden [B, S, D], aux_loss), each block
+    rematerialized in backward under ``cfg.remat``.  The recurrent
+    families run through ``decode.prefill`` and ``decode.decode_step``
+    only (their training trunk is not ported)."""
     if cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"forward() covers the attention family; {cfg.name} "
@@ -368,10 +430,23 @@ def forward(p: Params, cfg: ModelConfig, batch: dict, *,
         h = embed_tokens(p, cfg, tokens)
         h = with_positions(h, sinusoidal_positions(S, cfg.d_model,
                                                    h.device)[None])
+        block = _maybe_remat(lambda blk, x: whisper_dec_block(
+            blk, x, cfg, positions, enc_out)[0], cfg)
         for blk in layer_blocks(p, "dec_blocks"):
-            h = whisper_dec_block(blk, h, cfg, positions, enc_out)[0]
+            h = block(blk, h)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     else:
         h = embed_tokens(p, cfg, tokens, batch.get("vision_embeds"))
         h, aux = _attn_trunk(p, cfg, h, positions, win)
     return rms_norm(p["final_norm"], h, offset=cfg.rmsnorm_offset), aux
+
+
+def train_loss(p: Params, cfg: ModelConfig, batch: dict):
+    """Next-token CE (+ 0.01 x the MoE aux loss) → ``(total, {"ce", "aux"})``.
+    ``batch``: tokens, labels, loss_mask [B, S] (+ whisper's frames, a
+    VLM's vision embeddings)."""
+    h, aux = forward(p, cfg, batch)
+    loss = chunked_ce_loss(h, lm_head_w(p, cfg), batch["labels"],
+                           batch["loss_mask"].to(torch.float32),
+                           cfg.loss_chunk, vocab=cfg.vocab_size)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -74,12 +74,14 @@ def serving_matmul_problems(cfg: ModelConfig, batch_size: int,
                             ) -> list[tuple[str, int, int, int]]:
     """The dense problems ``(role, M, K, N)`` a serving step of ``cfg``
     dispatches: :func:`layer_matmul_problems` without, on a config whose
-    every layer's FFN is the MoE, the dense ``d_ff`` problems ``(M,
-    d_model, d_ff)`` and ``(M, d_ff, d_model)``.  Those expert matmuls
-    dispatch as grouped problems, so no step dispatches the dense ones
-    (the reference's engine lists and times them all the same)."""
+    every layer's FFN is the MoE and which has no shared expert, the dense
+    ``d_ff`` problems ``(M, d_model, d_ff)`` and ``(M, d_ff, d_model)``.
+    Those expert matmuls dispatch as grouped problems, so no step
+    dispatches the dense ones (the reference's engine lists and times them
+    all the same).  A shared expert (llama4's) is a dense FFN of width
+    ``d_ff``, so its config keeps them."""
     probs = layer_matmul_problems(cfg, batch_size, seq_len)
-    if not cfg.n_experts or cfg.moe_every != 1:
+    if not cfg.n_experts or cfg.moe_every != 1 or cfg.moe_shared_expert:
         return probs
     M, d, f = batch_size * seq_len, cfg.d_model, cfg.d_ff
     ffn_only = {("wi", M, d, f), ("wo", M, f, d)}

@@ -63,9 +63,9 @@ def test_port_config_is_the_reference_config(trees):
     assert tget(ARCH).__dict__ == jget(ARCH).__dict__
     assert tcfg.__dict__ == jcfg.__dict__
     assert tget("bitnet_b1p58_2b").name == ARCH
-    # the one reference arch the port does not serve yet
-    with pytest.raises(KeyError):
-        tget("llama4-maverick-400b-a17b")
+    # llama4-maverick, the last of the reference's archs, is ported too
+    llama4 = "llama4-maverick-400b-a17b"
+    assert tget(llama4).__dict__ == jget(llama4).__dict__
 
 
 def test_converter_round_trip_is_byte_identical(trees):

@@ -319,13 +319,26 @@ def test_layer_by_layer_build_equals_whole_tree_build(arch):
         assert x.dtype == y.dtype and np.array_equal(x, y)
 
 
-def test_interleaved_moe_is_refused_naming_the_slice_that_brings_it():
+def test_interleaved_moe_builds_layer_by_layer_as_the_whole_tree():
+    """llama4's dense/MoE interleave: the port's config is the reference's
+    field for field, and the layer-by-layer serving build (each expert
+    packed as drawn) equals the packed whole tree byte for byte."""
     jcfg = j_smoke("llama4-maverick-400b-a17b")
     tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                           for f in dataclasses.fields(jcfg)})
-    assert tcfg.moe_every > 1
-    with pytest.raises(NotImplementedError, match="dense_blocks"):
-        tmodel.init_params(tcfg, torch.Generator(), "cpu")
+    assert tcfg == t_smoke("llama4-maverick-400b-a17b")
+    assert tcfg.moe_every > 1 and tcfg.moe_shared_expert
+    tcfg = tcfg.with_(dense_ff=512)
+    whole = tdecode.quantize_for_serving(
+        tmodel.init_params(tcfg, torch.Generator().manual_seed(5), "cpu"),
+        tcfg)
+    layered = tdecode.init_serving_params(
+        tcfg, torch.Generator().manual_seed(5), "cpu")
+    a, b = to_numpy_tree(whole), to_numpy_tree(layered)
+    assert set(a) >= {"dense_blocks", "moe_blocks"}
+    assert jax.tree.structure(a) == jax.tree.structure(b)
+    for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
 
 
 @pytest.mark.parametrize("cfg_of", [j_config, j_smoke])
