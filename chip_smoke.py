@@ -8,8 +8,29 @@ Builds the eight hand-written CUDA kernels from
 ``dequant_packed``, ``w2a8``, ``signflip``, ``grouped_dequant``,
 ``grouped_w2a8``; one ``nvcc`` per source, all at once), then serves
 eleven models at full width, each built layer by layer from a seed
-(``decode.init_serving_params``; the bf16 tree is never held), and
-trains bitnet at full width and depth and serves the trained weights:
+(``decode.init_serving_params``; the bf16 tree is never held), trains
+bitnet at full width and depth and serves the trained weights, and trains
+zamba2 and xlstm at full width and depth.  First, after the kernel
+checks at bitnet's shapes, the hardware-generation side (``hardware``):
+
+  * the paper's model (``repro_torch.core``: the generator, the §IV cost
+    model, the DSE) at its design points, printed with Table IV's two
+    baseline ratios and Table V's rows and held to the published anchors
+    under ``tests/test_cost_model.py``'s tolerances (``hardware_model``;
+    areas at 16 nm, TOPS/mm^2 at 800 MHz: the paper's ASIC model, not a
+    measurement);
+  * the generated core (mu = 3, L = 32, K = 32, int8) simulated on the
+    card (``core.simulator``) on bitnet's FFN ``wi`` (2560 -> 6912) and
+    ``wo`` (6912 -> 2560) at full width with int8-valued activations:
+    ``y`` must equal the int64 product, the CUDA ``lut_gather`` at M = 1
+    on the same keys (launched through the design's kernel plan: the
+    path's launches) and its plain version, exactly (every f32 partial sum
+    is an integer under 2^24); the cores at mu 1, 2, 4 and 5 against the
+    int64 product.  The modelled cycles and the simulator's wall time are
+    recorded.  ``lut_gather`` at M = 1, int8, is checked and timed at both
+    shapes as a kernel row.
+
+Then
 
 bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
 ``ContinuousScheduler``, on these paths:
@@ -24,16 +45,18 @@ bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
     ``fixed:signflip`` (bf16) and ``fixed:w2a8`` (int8), batch 4;
   * traffic (after the prior paths, before autotune): the first 12
     arrivals of the ``agentic`` scenario (its lengths kept, arrivals cut),
-    replayed open-loop on the wall clock by ``LoadGenerator`` at batch 4,
-    ``max_len`` from the scenario's geometry, three times on fresh engines
-    over the same weights: without a prefix store, with one that starts
-    empty (512 MiB, so nothing is evicted), and with one of the engine's
-    default 64 MiB (27 blocks at this width, so LRU eviction runs).  Every
+    replayed open-loop on the wall clock by ``LoadGenerator`` at batch 4
+    on bitnet's first 10 blocks (the depth cut for the script's time
+    limit; full width), ``max_len`` from the scenario's geometry, three
+    times on fresh engines over the same weights: without a prefix store,
+    with one that starts empty (512 MiB, so nothing is evicted), and with
+    one of 21.3 MiB (27 blocks, as the engine's default 64 MiB holds at 30
+    layers, so LRU eviction runs).  Every
     request's token stream must be the same in all three replays (a dense
     step computes each row on its own, and admission prefills on a private
     single-row cache, so which rows share a batch changes no stream), the
     512 MiB replay must prefill fewer chunks and hit at least once, the
-    64 MiB replay must evict at least one block, and ``lut_gather`` must
+    21.3 MiB replay must evict at least one block, and ``lut_gather`` must
     launch in each;
   * speculative (after the traffic phase, before autotune): batch 4,
     ``spec_k`` 4, six requests (prompts of 3 to 120 tokens, 24 new tokens
@@ -142,7 +165,15 @@ then training (``launch.train``):
     trained 30-layer tree, which serves bitnet's batch-4 requests on the
     prior through the hand kernels, with ``cross_check`` against
     ``fixed:ref`` (the flow of the reference's
-    ``test_full_lifecycle_train_quantize_serve``).
+    ``test_full_lifecycle_train_quantize_serve``);
+  * ``train_zamba2`` and ``train_xlstm``: zamba2-2.7b (54 Mamba2 layers,
+    the shared block after every 6th) and xlstm-125m (6 mLSTM/sLSTM
+    pairs) at full width and depth, AdamW, 6 steps of 8 x 512 tokens from
+    the seed-0 init: every step finite, the peak device memory under 75
+    GB; step ms, tokens/s, peak GB;
+  * ``train_check`` for zamba2 (one group: 6 Mamba2 blocks and the shared
+    block) and xlstm (one pair) at full width, card vs CPU, under
+    bitnet's bounds.
 
 Their kernel phase checks ``lut_gather`` at decode (M=4) and at the longest
 whole prompt (M=120) and ``tl2`` at M=1 on each model's shapes (zamba2's
@@ -269,8 +300,8 @@ Tolerances:
     of ``fixed:ref``'s: a bound on the kernels over the whole model with
     the routing noise taken out.
 
-  * ``train_check``: the card and the CPU sum the products in other
-    orders, which can move a bf16 activation by an ulp and an int8
+  * ``train_check`` (bitnet, zamba2, xlstm): the card and the CPU sum
+    the products in other orders, which can move a bf16 activation by an ulp and an int8
     activation code by one.  The loss is held to 2^-10 relative, each
     gradient leaf to a relative L2 distance of 2^-4, and each leaf's
     update to 2^-1: after the int8 gradient round trip AdamW's first
@@ -434,7 +465,12 @@ PATHS = {"batch4": (ARCH, 4, "bfloat16", None),
 TRAFFIC_SCENARIO = "agentic"
 TRAFFIC_REQUESTS = 12
 TRAFFIC_STORE_MB = 512.0
-TRAFFIC_EVICT_MB = 64.0
+#: the replays run bitnet's first TRAFFIC_LAYERS blocks (the script's time
+#: limit; a replay's wall time is mostly per-layer host work), with the
+#: evicting store cut in proportion: 27 blocks, as the engine's default
+#: 64 MiB holds at all 30 layers
+TRAFFIC_LAYERS = 10
+TRAFFIC_EVICT_MB = 64.0 * TRAFFIC_LAYERS / 30
 #: the speculative phase: candidates a round, the requests' prompt lengths
 #: (six through four slots) and budgets, and the mismatched draft's depth
 #: (the served target's first blocks)
@@ -455,12 +491,29 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 512
 TRAIN_WARMUP = 2
 TRAIN_LR = 3e-4
-#: train_check: depth, batch and sequence length of the card-vs-CPU step,
-#: and its relative bounds (see the module docstring)
-TRAIN_CHECK_LAYERS = 2
-TRAIN_CHECK_BATCH = 2
-TRAIN_CHECK_SEQ = 64
+#: the recurrent archs' training runs at full width and depth: AdamW
+#: steps at bitnet's TRAIN_BATCH x TRAIN_SEQ tokens, each peak under
+#: TRAIN_PEAK_GB of device memory
+TRAIN_REC_STEPS = 6
+TRAIN_PEAK_GB = 75.0
+#: train_check: depth per arch (the smallest each trunk has: bitnet 2
+#: layers, one zamba2 group of 6 Mamba2 blocks and the shared block, one
+#: xlstm mLSTM/sLSTM pair), the (batch, sequence length) of its
+#: card-vs-CPU step, and its relative bounds (see the module docstring).
+#: zamba2's CPU step is mostly per-parameter work (fake quant, gradient
+#: compression, AdamW over 0.5 G parameters): on the card machine's 8
+#: cores its train step took 28.2 s at 2 x 64 and 20.6 s at 1 x 32, the
+#: whole comparison 50 and 26 s
+TRAIN_CHECK_LAYERS = {ARCH: 2, ZAMBA: 6, XLSTM: 2}
+TRAIN_CHECK_SHAPE = {ARCH: (2, 64), ZAMBA: (1, 32), XLSTM: (2, 64)}
 TRAIN_CHECK_RTOL = {"loss": 2.0 ** -10, "grad": 2.0 ** -4, "update": 2.0 ** -1}
+#: the hardware phase: the generated core simulated on the card on bitnet's
+#: wi and wo, against the int64 product, lut_gather (M=1) and its plain
+#: version; the other group sizes simulated against the int64 product only;
+#: the simulator's wall time is the median of HW_SIM_REPS runs
+HW_CORE = {"mu": 3, "L": 32, "K": 32, "act_dtype": "int8"}
+HW_OTHER_MU = (1, 2, 4, 5)
+HW_SIM_REPS = 3
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -2350,8 +2403,8 @@ def _tree_pairs(a, b, path=()):
         yield "/".join(path), a, b
 
 
-def _steps_record(records: list[dict]) -> dict:
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+def _steps_record(records: list[dict], batch: int = TRAIN_BATCH) -> dict:
+    tokens = batch * TRAIN_SEQ
     ms = statistics.median(r["ms"] for r in records[1:])
     return {"steps": [{**r, "tokens_per_s": tokens / r["ms"] * 1e3}
                       for r in records],
@@ -2475,21 +2528,27 @@ def _step_on(torch, cfg, params, batch_np, device):
     return float(metrics["loss"]), float(loss.detach()), grads, update
 
 
-def train_check(torch) -> dict:
-    """One train step of a ``TRAIN_CHECK_LAYERS``-layer bitnet at full
-    width with gradient compression, on the card and on the CPU from the
-    same weights and batch: the loss, each leaf's gradient and each leaf's
-    update must agree (``TRAIN_CHECK_RTOL``, see the module docstring)."""
+def train_check(torch, arch: str = ARCH) -> dict:
+    """One train step of ``arch`` at full width and its
+    ``TRAIN_CHECK_LAYERS`` depth with gradient compression, on the card and
+    on the CPU from the same weights and batch: the loss, each leaf's
+    gradient and each leaf's update must agree (``TRAIN_CHECK_RTOL``, see
+    the module docstring)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
     from repro_torch.models.model import init_params
 
-    cfg = get_config(ARCH).with_(n_layers=TRAIN_CHECK_LAYERS)
-    params = init_params(cfg, torch.Generator().manual_seed(SEED + 31), "cpu")
-    batch = SyntheticLMStream(DataConfig(cfg.vocab_size, TRAIN_CHECK_SEQ,
-                                         TRAIN_CHECK_BATCH)).batch(0)
+    cfg = get_config(arch).with_(n_layers=TRAIN_CHECK_LAYERS[arch])
+    # drawn on the card (a CPU draw of bitnet's 0.8 G parameters takes
+    # tens of seconds), kept on the host
+    params = _tree_to(init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 31), DEVICE), "cpu")
+    torch.cuda.empty_cache()
+    rows, seq = TRAIN_CHECK_SHAPE[arch]
+    batch = SyntheticLMStream(DataConfig(cfg.vocab_size, seq,
+                                         rows)).batch(0)
     t0 = time.perf_counter()
     card = _step_on(torch, cfg, params, batch, DEVICE)
     t1 = time.perf_counter()
@@ -2510,12 +2569,51 @@ def train_check(torch) -> dict:
              "update": max(out["update_rel"].values())}
     for key, value in worst.items():
         if not value <= TRAIN_CHECK_RTOL[key]:
-            raise AssertionError(f"train_check: {key} relative difference "
+            raise AssertionError(f"train_check {arch}: {key} relative "
+                                 f"difference "
                                  f"{value} > {TRAIN_CHECK_RTOL[key]}: {out}")
     return {"arch": cfg.name, "n_layers": cfg.n_layers, "compress": True,
-            "batch": TRAIN_CHECK_BATCH, "seq_len": TRAIN_CHECK_SEQ,
+            "batch": rows, "seq_len": seq,
             "card_seconds": t1 - t0, "cpu_seconds": t2 - t1,
             "worst": worst, "rtol": TRAIN_CHECK_RTOL, **out}
+
+
+def train_recurrent(torch, card, arch: str) -> dict:
+    """``arch`` (zamba2 or xlstm) at full width and depth in QAT on AdamW:
+    ``train()`` from the seed-0 init for ``TRAIN_REC_STEPS`` steps of
+    ``TRAIN_BATCH`` rows of ``TRAIN_SEQ`` tokens.  Every step must
+    be finite and none skipped, and the peak device memory under
+    ``TRAIN_PEAK_GB``."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(arch)
+    batch = TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=TRAIN_REC_STEPS, global_batch=batch,
+                seq_len=TRAIN_SEQ, warmup=TRAIN_WARMUP, lr=TRAIN_LR,
+                device=DEVICE, log_every=1)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del run["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs = run["records"]
+    if any(r["skipped"] or not math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"{arch}: a step was skipped or not finite: "
+                             f"{recs}")
+    if not peak < TRAIN_PEAK_GB:
+        raise AssertionError(f"{arch}: training peaked at {peak} GB, not "
+                             f"under {TRAIN_PEAK_GB}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "optimizer": cfg.optimizer,
+            "quantize_acts": cfg.quantize_acts, "remat": cfg.remat,
+            "gpu": card, "global_batch": batch, "seq_len": TRAIN_SEQ,
+            "warmup": TRAIN_WARMUP, "lr": TRAIN_LR, "seconds": seconds,
+            "max_memory_allocated_gb": peak, **_steps_record(recs, batch)}
 
 
 def train_phase(torch, checked: set, card: str) -> dict:
@@ -2523,7 +2621,9 @@ def train_phase(torch, checked: set, card: str) -> dict:
     ``train_then_serve``: the
     trained 30-layer tree packed by ``decode.quantize_for_serving`` and
     served at batch 4 on the prior through the hand kernels, with
-    ``cross_check`` against ``fixed:ref``.  Returns ``{path: record}``."""
+    ``cross_check`` against ``fixed:ref``; then, bitnet freed,
+    ``train_zamba2`` and ``train_xlstm`` (:func:`train_recurrent`) and
+    their ``train_check``.  Returns ``{path: record}``."""
     import gc
 
     from repro_torch.configs.registry import get_config
@@ -2546,7 +2646,178 @@ def train_phase(torch, checked: set, card: str) -> dict:
     del served
     gc.collect()
     torch.cuda.empty_cache()
+    for arch, name in ((ZAMBA, "train_zamba2"), (XLSTM, "train_xlstm")):
+        emit(name, **train_recurrent(torch, card, arch))
+    for arch in (ZAMBA, XLSTM):
+        emit("train_check", gpu=card, **train_check(torch, arch))
     return {"train_then_serve": path}
+
+
+# ---------------------------------------------------------------------------
+# the hardware-generation side
+# ---------------------------------------------------------------------------
+
+
+def paper_model() -> dict:
+    """The generator and the §IV cost model at the paper's design points,
+    held to its published anchors under ``tests/test_cost_model.py``'s
+    tolerances: Table IV (the 32 x 32 fp16 core at mu = 3: 0.120 mm^2, the
+    dequant and sign-flip baselines 2.23x and 1.64x its area, mu = 3
+    optimal), Table V (TENET's (32, 2, 32) within 0.05 of 1.004x the
+    matched-throughput optimum and 7.9x its published 28 nm area scaled to
+    16 nm, TeLLMe-v2 off the frontier, the (34, 2, 30) int8 core 33,125
+    µm^2), int8's optimum at mu 1 or 2 and Fig. 8's aspect directions.
+    Every number is the paper's 16 nm ASIC model, not a measurement."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import dse
+    from repro_torch.core.generator import LUTCoreConfig, generate
+
+    # Table IV's tile is 32 x 32 weights (n = L mu = 32, m = K = 32)
+    c = cm.get_coeffs("fp16")
+    gates = cm.area_gates_lut(3, 32, 32, c)
+    table_iv = {"dequant_ratio": cm.area_gates_dequant_baseline(32, 32, c)
+                / gates,
+                "signflip_ratio": cm.area_gates_signflip_baseline(32, 32, c)
+                / gates,
+                "area_mm2": cm.lut_core_area_mm2(3, 32, 32, "fp16"),
+                "tops_per_mm2": cm.tops_per_mm2(3, 32, 32, "fp16"),
+                "optimal_mu": cm.optimal_mu(32, 32, "fp16")}
+    table_v = dse.sota_comparison()
+    anchor_um2 = dse.DesignPoint(mu=2, L=34, K=30, dtype="int8").area_um2()
+    rows = {r["work"]: r for r in table_v}
+    fp_geo, i8_geo = (dse.optimal_geometry(1024, dt) for dt in ("fp16", "int8"))
+    checks = {
+        "table_iv_mu3_optimal": table_iv["optimal_mu"] == 3,
+        "table_iv_dequant_2.23": math.isclose(table_iv["dequant_ratio"], 2.23,
+                                              rel_tol=0.05),
+        "table_iv_signflip_1.64": math.isclose(table_iv["signflip_ratio"],
+                                               1.64, rel_tol=0.05),
+        "table_iv_area_0.120": math.isclose(table_iv["area_mm2"], 0.120,
+                                            rel_tol=0.01),
+        "table_v_area_33125": math.isclose(anchor_um2, 33_125, rel_tol=0.01),
+        "table_v_tenet_1.004": abs(rows["tenet"]["model_prediction"]
+                                   - 1.004) <= 0.05,
+        "table_v_tenet_7.9": math.isclose(
+            rows["tenet"]["area_decrease_vs_published"], 7.9, rel_tol=0.15),
+        "table_v_tellme_off_frontier":
+            rows["tellme_v2"]["model_prediction"] > 1.1,
+        "int8_mu_1_or_2": cm.optimal_mu(32, 32, "int8") in (1, 2),
+        "fig8_geometry": fp_geo.m > fp_geo.n and i8_geo.n > i8_geo.m}
+    failed = sorted(k for k, ok in checks.items() if not ok)
+    if failed:
+        raise AssertionError(f"the port's cost model misses the paper's "
+                             f"anchors {failed}: {table_iv}, {table_v}")
+    designs = {f"ours_{r['work']}": generate(LUTCoreConfig(
+        mu=r["ours"][1], L=r["ours"][0], K=r["ours"][2],
+        act_dtype=dse.SOTA[r["work"]]["dtype"])).report() for r in table_v}
+    return {"what": "the paper's 16 nm ASIC cost model (area in um^2 and "
+                    "mm^2 at 16 nm, TOPS/mm^2 at F_CLK_16NM = 800 MHz); "
+                    "modelled, not measured",
+            "table_iv": table_iv, "table_v": table_v, "table_v_anchor_um2": anchor_um2,
+            "designs": designs, "checks": sorted(checks)}
+
+
+def hardware_phase(torch, rows: list, checked: set, flush, card) -> dict:
+    """The paper's model (:func:`paper_model`), then the generated core
+    (``HW_CORE``) simulated on the card on bitnet-b1.58-2b's FFN ``wi``
+    (2560 -> 6912) and ``wo`` (6912 -> 2560) at full width: trits from the
+    seed-0 draw of a layer's weights, ternarized as served, int8-valued
+    activations from the seed.  Each simulated ``y`` must equal the int64
+    product, the CUDA ``lut_gather`` at M = 1 on the same keys (the served
+    key layout), launched through the design's kernel plan with the
+    counters set to 0 just before and read just after, and its plain
+    version: f32 is exact there, every partial sum an integer under 2^24.
+    The other group sizes (``HW_OTHER_MU``) are simulated against the int64
+    product only: no kernel is built for them.  Returns ``{"hardware":
+    path record}``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import encoding
+    from repro_torch.core.generator import LUTCoreConfig, generate
+    from repro_torch.core.quantization import ternarize
+    from repro_torch.core.simulator import simulate_gemv
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.kernels.lut_matmul import lut_matmul_torch
+    from repro_torch.models.model import init_layer
+
+    emit("hardware_model", **paper_model())
+    cfg = get_config(ARCH)
+    dev = torch.device(DEVICE)
+    layer = init_layer(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)["ffn"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    design = generate(LUTCoreConfig(**HW_CORE))
+    mu = design.config.mu
+    projections = {}
+    for name in ("wi", "wo"):
+        w_t = ternarize(layer[name]["w"])[0].T.contiguous()     # [N, K]
+        x = torch.randint(-127, 128, (w_t.shape[1],), generator=g,
+                          device=dev, dtype=torch.int8)
+        keys = encoding.encode_weight_matrix(w_t, mu)
+        keys = encoding.pad_rows(keys, encoding.KEY_ROW_BYTES,
+                                 encoding.table_size(mu))[:, :keys.shape[1]]
+        projections[name] = (w_t, x, keys)
+        n, k = w_t.shape
+        row = kernel_case(torch, "lut_gather", 1, k, n, "int8", flush)
+        row["model"] = ARCH
+        emit("kernel", **row)
+        rows.append(row)
+    checked.add((ARCH, "lut_gather", 1, "int8"))
+    del layer
+
+    out = {}
+    reset_launch_counts()
+    kern = {name: design.kernel_plan.run(x[None], keys)[0]
+            for name, (_, x, keys) in projections.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(counts, {"lut_gather"})
+    for name, (w_t, x, keys) in projections.items():
+        want = (w_t.to(torch.int64) * x.to(torch.int64)).sum(-1)
+        plain = lut_matmul_torch(x[None], keys, mu)[0]
+        times = []
+        for _ in range(HW_SIM_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, stats = simulate_gemv(design, w_t, x, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        equal = {"sim_vs_int64": torch.equal(y, want),
+                 "kernel_vs_int64": torch.equal(kern[name],
+                                                want.to(torch.float32)),
+                 "kernel_vs_plain": torch.equal(kern[name], plain)}
+        if not all(equal.values()) or y.device.type != dev.type:
+            raise AssertionError(f"hardware {name}: {equal} on {y.device}")
+        others = {}
+        for omu in HW_OTHER_MU:
+            od = generate(LUTCoreConfig(**{**HW_CORE, "mu": omu}))
+            t0 = time.perf_counter()
+            oy, ostats = simulate_gemv(od, w_t, x, device=dev)
+            torch.cuda.synchronize()
+            if not torch.equal(oy, want):
+                raise AssertionError(f"hardware {name}: the mu={omu} core's "
+                                     f"simulation is not the int64 product")
+            others[omu] = {"cycles": ostats.cycles,
+                           "wall_ms": (time.perf_counter() - t0) * 1e3}
+        n, k = w_t.shape
+        out[name] = {"K": k, "N": n, "equal": equal,
+                     "cycles_modelled": stats.cycles,
+                     "build_phases": stats.build_phases,
+                     "fetch_cycles": stats.fetch_cycles,
+                     "mac_equiv": stats.mac_equiv,
+                     "muls_per_cycle_modelled": stats.muls_per_cycle,
+                     "sim_wall_ms": statistics.median(times),
+                     "sim_wall_ms_all": times,
+                     "other_mu_vs_int64": others}
+    rec = {"design": HW_CORE, "report": design.report(),
+           "kernel_plan": {"kernel": design.kernel_plan.kernel,
+                           "block_n": design.kernel_plan.block_n,
+                           "block_m": design.kernel_plan.block_m},
+           "cycles_note": "the generated core's modelled ASIC schedule "
+                          "(Eq. 1), not a device measurement",
+           "gpu": card, **out, "launches": counts}
+    emit("hardware", **rec)
+    return {"hardware": rec}
 
 
 def packed_gb(tree) -> float:
@@ -2640,8 +2911,11 @@ def main() -> int:
     for name, m, act in LAYER_ROWS:
         emit("layer", kernel=name, **layer_summary(rows, name, ARCH, m, act))
 
+    # 0. the hardware-generation side: the paper's model, and the generated
+    # LUT core simulated on the card against lut_gather
+    paths = hardware_phase(torch, rows, checked, flush, card)
+
     cfg, served = build_model(torch, ARCH)
-    paths = {}
     lengths = BATCH4_LENGTHS
     short = [3, 40, 20, 9]
     cfg8 = cfg.with_(act_dtype="int8")
@@ -2662,7 +2936,9 @@ def main() -> int:
         emit("cross_check", **cross_check(torch, served, c))
 
     # 1b. bitnet under arriving traffic, on the prior (before autotune)
-    for name, rec in traffic_phase(torch, served, cfg, checked).items():
+    for name, rec in traffic_phase(
+            torch, first_blocks(served, TRAFFIC_LAYERS),
+            cfg.with_(n_layers=TRAFFIC_LAYERS), checked).items():
         paths[f"traffic_{name}"] = rec
         emit(f"traffic_{name}", gpu=card, **rec)
         torch.cuda.empty_cache()

@@ -408,19 +408,59 @@ def _attn_trunk(p: Params, cfg: ModelConfig, h: torch.Tensor, positions,
     return h, aux
 
 
+def _zamba2_trunk(p: Params, cfg: ModelConfig, h: torch.Tensor, positions,
+                  window: int):
+    """zamba2's trunk → ``(h, 0)``: groups of ``attn_every`` pre-normed,
+    residual Mamba2 blocks, each group followed by the *shared* attention
+    and FFN block (one set of parameters, so the gradients of all its uses
+    add up).  Each Mamba2 block and each group is rematerialized under
+    ``cfg.remat``, as the reference's."""
+    shared = p["shared_attn"]
+    mamba = _maybe_remat(lambda blk, x: x + ssm.mamba2_block(
+        blk["mixer"], rms_norm(blk["ln"], x), cfg)[0], cfg)
+
+    def group(blocks, x):
+        for blk in blocks:
+            x = mamba(blk, x)
+        hn = rms_norm(shared["ln1"], x)
+        x = x + attention(shared["attn"], hn, cfg, positions=positions,
+                          window=window)
+        return x + ffn(shared["ffn"], rms_norm(shared["ln2"], x), cfg)
+
+    group = _maybe_remat(group, cfg)
+    blocks, g = layer_blocks(p, "mamba_blocks"), cfg.attn_every
+    for i in range(cfg.n_layers // g):
+        h = group(blocks[i * g:(i + 1) * g], h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _xlstm_trunk(p: Params, cfg: ModelConfig, h: torch.Tensor):
+    """xlstm's trunk → ``(h, 0)``: pairs of a pre-normed, residual mLSTM
+    block and sLSTM block, each pair rematerialized under ``cfg.remat``, as
+    the reference's."""
+    def pair(mblk, sblk, x):
+        x = x + xlstm.mlstm_block(mblk["cell"], rms_norm(mblk["ln"], x),
+                                  cfg)[0]
+        return x + xlstm.slstm_block(sblk["cell"], rms_norm(sblk["ln"], x),
+                                     cfg)[0]
+
+    pair = _maybe_remat(pair, cfg)
+    for mblk, sblk in zip(layer_blocks(p, "mlstm_blocks"),
+                          layer_blocks(p, "slstm_blocks")):
+        h = pair(mblk, sblk, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def forward(p: Params, cfg: ModelConfig, batch: dict, *,
             window: int | None = None):
-    """Training/prefill trunk of the attention family (llama4's interleave;
-    whisper's encoder-decoder with ``batch["frames"]``, a VLM with
-    ``batch["vision_embeds"]``) → (hidden [B, S, D], aux_loss), each block
-    rematerialized in backward under ``cfg.remat``.  The recurrent
-    families run through ``decode.prefill`` and ``decode.decode_step``
-    only (their training trunk is not ported)."""
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"forward() covers the attention family; {cfg.name} "
-            f"(block_pattern={cfg.block_pattern}) serves through "
-            f"decode.prefill and decode_step")
+    """Training/prefill trunk → (hidden [B, S, D], aux_loss) of every
+    family: the attention family (llama4's interleave; whisper's
+    encoder-decoder with ``batch["frames"]``, a VLM with
+    ``batch["vision_embeds"]``), zamba2 and xlstm, each block (and each
+    group where the reference's has groups) rematerialized in backward
+    under ``cfg.remat``.  Serving runs the same blocks through
+    ``decode.prefill`` and ``decode.decode_step``, which keep the
+    recurrent states."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
@@ -437,7 +477,14 @@ def forward(p: Params, cfg: ModelConfig, batch: dict, *,
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     else:
         h = embed_tokens(p, cfg, tokens, batch.get("vision_embeds"))
-        h, aux = _attn_trunk(p, cfg, h, positions, win)
+        if cfg.block_pattern == "attn":
+            h, aux = _attn_trunk(p, cfg, h, positions, win)
+        elif cfg.block_pattern == "zamba2":
+            h, aux = _zamba2_trunk(p, cfg, h, positions, win)
+        elif cfg.block_pattern == "xlstm":
+            h, aux = _xlstm_trunk(p, cfg, h)
+        else:
+            raise ValueError(cfg.block_pattern)
     return rms_norm(p["final_norm"], h, offset=cfg.rmsnorm_offset), aux
 
 

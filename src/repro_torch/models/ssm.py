@@ -106,7 +106,12 @@ def _ssd_chunked(u, B_in, C_in, log_a, chunk: int, h0=None):
         total = cs[:, -1]                                      # [B, H]
         scores = torch.einsum("bin,bjn->bij", Ccb, Bcb)
         decay = cs[:, :, None, :] - cs[:, None, :, :]          # [B, i, j, H]
-        gate = torch.where(causal, torch.exp(decay), 0.0)
+        # masked before the exp, not after as the reference: the entries
+        # above the diagonal (j > i) are -(the log decays in (i, j]) >= 0
+        # and overflow to inf once the dt grow in training, and the
+        # reference's where-after-exp then sends 0 * inf = NaN back through
+        # the exp.  The forward values are the same bit for bit.
+        gate = torch.exp(torch.where(causal, decay, -math.inf))
         y_intra = torch.einsum("bij,bijh,bjhp->bihp", scores, gate, ucb)
         y_inter = torch.einsum("bin,bhnp,bih->bihp", Ccb, h, torch.exp(cs))
         carry_in = torch.einsum("bjn,bjhp,bjh->bhnp", Bcb, ucb,

@@ -20,10 +20,12 @@ state equals the reference's own one-step-at-a-time recurrence.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _act, linear, rms_norm
@@ -191,20 +193,13 @@ def init_slstm(g: torch.Generator, cfg: ModelConfig,
                                      device=device)}}
 
 
-def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Sequential sLSTM cell over the S positions of x: [B, S, D] →
-    (h_seq [B, S, D] in x's dtype, state).  ``state = (c, n, h, m)``, each
-    [B, D] f32.  Steps exactly S positions (see the module docstring)."""
-    B, S, D = x.shape
-    f32 = torch.float32
-    if state is None:
-        z = torch.zeros((B, D), dtype=f32, device=x.device)
-        state = (z, z + 1e-6, z, z - 1e30)
-    c, n, h, m = state
-    gx = x.to(f32) @ p["gates_x"]["w"]                       # [B, S, 4D]
-    wh = p["gates_h"]["w"]
+def _slstm_steps(gx: torch.Tensor, wh: torch.Tensor, c, n, h, m):
+    """The sLSTM cell stepped over ``gx [B, T, 4D]`` (the input gate
+    products) from the carry ``(c, n, h, m)`` → ``(h_seq [B, T, D] f32, c,
+    n, h, m)``."""
+    D = wh.shape[0]
     hs = []
-    for t in range(S):
+    for t in range(gx.shape[1]):
         g = gx[:, t] + h @ wh
         zt, it, ft, ot = torch.split(g, D, dim=-1)
         zt = torch.tanh(zt)
@@ -218,7 +213,40 @@ def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
         h = ot * c / torch.maximum(n, torch.exp(-m_new))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, 1).to(x.dtype), (c, n, h, m)
+    return torch.stack(hs, 1), c, n, h, m
+
+
+#: steps a checkpointed sLSTM chunk takes under autograd (the reference's)
+SLSTM_TIME_CHUNK = 64
+
+
+def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig, state=None):
+    """Sequential sLSTM cell over the S positions of x: [B, S, D] →
+    (h_seq [B, S, D] in x's dtype, state).  ``state = (c, n, h, m)``, each
+    [B, D] f32.  Steps exactly S positions (see the module docstring).
+
+    Under autograd each :data:`SLSTM_TIME_CHUNK` steps run under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per
+    chunk): backward keeps only every chunk's first carry and recomputes
+    the steps inside it, where a plain loop would keep every step's.
+    Without autograd the chunks run as they are, the same operations in the
+    same order."""
+    B, S, D = x.shape
+    f32 = torch.float32
+    if state is None:
+        z = torch.zeros((B, D), dtype=f32, device=x.device)
+        state = (z, z + 1e-6, z, z - 1e30)
+    gx = x.to(f32) @ p["gates_x"]["w"]                       # [B, S, 4D]
+    wh = p["gates_h"]["w"]
+    steps = _slstm_steps
+    if torch.is_grad_enabled() and (gx.requires_grad or wh.requires_grad):
+        steps = functools.partial(torch.utils.checkpoint.checkpoint,
+                                  _slstm_steps, use_reentrant=False)
+    hs = []
+    for t0 in range(0, S, SLSTM_TIME_CHUNK):
+        h_seq, *state = steps(gx[:, t0:t0 + SLSTM_TIME_CHUNK], wh, *state)
+        hs.append(h_seq)
+    return torch.cat(hs, 1).to(x.dtype), tuple(state)
 
 
 def slstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, state=None):

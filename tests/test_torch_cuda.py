@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: lut_gather, lut_onehot, tl2, dequant_packed, w2a8, signflip, and
 the grouped (MoE expert stack) grouped_dequant and grouped_w2a8 (also at
-llama4-maverick's 128 experts); and one QAT train step of a 2-layer
-bitnet at full width on the card against the same step on the CPU.
+llama4-maverick's 128 experts); one QAT train step of a 2-layer
+bitnet at full width on the card against the same step on the CPU; and
+the generated LUT core's simulator on the card against ``lut_gather``.
 
 These tests need a CUDA card and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); elsewhere they skip.  The
@@ -1504,3 +1505,29 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     assert abs(card[0] - cpu[0]) <= 2.0 ** -10 * abs(cpu[0])
     assert max(rel(a, b) for a, b in zip(card[1], cpu[1])) <= 2.0 ** -4
     assert max(rel(a, b) for a, b in zip(card[2], cpu[2])) <= 2.0 ** -1
+
+
+def test_simulated_core_equals_lut_gather_and_the_int64_product(cuda):
+    """The generated core (mu=3, L=32, K=32) simulated on the card, the
+    CUDA ``lut_gather`` run through the design's kernel plan on the same
+    keys, and the int64 product: all equal (int8 x, so every f32 partial
+    sum is an integer below 2^24)."""
+    from repro_torch.core import generator as tgen
+    from repro_torch.core import simulator as tsim
+
+    x, w = _case(29, 1, 300, 511, int8=True)
+    xt = torch.from_numpy(x).to(cuda)
+    wt = torch.from_numpy(w).to(cuda)
+    design = tgen.generate(tgen.LUTCoreConfig(mu=3, L=32, K=32,
+                                              act_dtype="int8"))
+    y_sim, stats = tsim.simulate_gemv(design, wt, xt[0], device=cuda)
+    keys = tenc.encode_weight_matrix(wt, 3)
+    n0 = tlut.lut_matmul.launches
+    y_kern = design.kernel_plan.run(xt, keys)[0]
+    assert tlut.lut_matmul.launches == n0 + 1
+    want = (wt.to(torch.int64) * xt[0].to(torch.int64)).sum(-1)
+    torch.cuda.synchronize()
+    assert y_sim.device.type == "cuda" and y_sim.dtype == torch.int64
+    assert torch.equal(y_sim, want)
+    assert torch.equal(y_kern, want.to(torch.float32))
+    assert stats.mac_equiv == 320 * 576

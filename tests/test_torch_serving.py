@@ -364,7 +364,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
              for f in files[:-1]}
     assert {"optim/optimizers.py", "optim/compression.py",
             "data/pipeline.py", "checkpoint/checkpointing.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "core/netlist.py", "core/lut_algorithm.py",
+            "core/generator.py", "core/simulator.py", "core/dse.py",
+            "core/calibration.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert offenders == []
@@ -374,7 +376,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim.optimizers, "
             "repro_torch.optim.compression, repro_torch.data.pipeline, "
-            "repro_torch.checkpoint.checkpointing; "
+            "repro_torch.checkpoint.checkpointing, repro_torch.core, "
+            "repro_torch.core.simulator, repro_torch.core.calibration; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -6,7 +6,9 @@ step and loop, and the train → quantize → serve lifecycle.
 
 Models run at reduced configs (bitnet-b1.58-2b with int8 activation
 fake-quant, phi3.5-moe with its aux loss, llama4-maverick with
-``dense_ff=512``, 4 layers, d_model 128); inputs come from numpy seeds.
+``dense_ff=512``, 4 layers, d_model 128; zamba2 with two groups of 6
+Mamba2 blocks and the shared block, xlstm with 2 mLSTM/sLSTM pairs);
+inputs come from numpy seeds.
 
 Tolerances, and why:
   * quantizers, packings, the schedule, clipping, compression, data and
@@ -60,6 +62,7 @@ from repro.launch import train as jtrain
 from repro.models import decode as jdecode
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.models import ssm as jssm
 from repro.optim import compression as jcomp
 from repro.optim import optimizers as jopt
 from repro.serving import engine as jengine
@@ -74,6 +77,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import decode as tdecode
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
+from repro_torch.models import ssm as tssm
 from repro_torch.optim import compression as tcomp
 from repro_torch.optim import optimizers as topt
 from repro_torch.serving import engine as tengine
@@ -81,11 +85,20 @@ from repro_torch.serving import engine as tengine
 BITNET = "bitnet-b1.58-2b"
 PHI = "phi3.5-moe-42b-a6.6b"
 LLAMA4 = "llama4-maverick-400b-a17b"
-ARCHS = [BITNET, PHI, LLAMA4]
+ZAMBA = "zamba2-2.7b"
+XLSTM = "xlstm-125m"
+ARCHS = [BITNET, PHI, LLAMA4, ZAMBA, XLSTM]
 #: reduced llama4's dense blocks at twice d_ff, as the full config's
 OVERRIDES = {LLAMA4: {"dense_ff": 512}}
 SEQ, BATCH = 16, 2
 LR, WARMUP, TOTAL = 3e-3, 2, 10
+#: the recurrent archs' three steps run at a third of LR: at LR their loss
+#: after step 2 is so sensitive to the first steps' rounding that the JAX
+#: step compiled and the same step run op by op part by 6.4% on xlstm (4x
+#: the loss tolerance below), so no port can be held to either there; at
+#: 1e-3 the port stays within 0.3x the loss and 0.63x the gnorm tolerance
+#: of the compiled step on both archs
+STEP_LR = {ZAMBA: 1e-3, XLSTM: 1e-3}
 
 
 @pytest.fixture(autouse=True)
@@ -310,13 +323,47 @@ def test_remat_changes_nothing_but_memory(jax_params):
     assert all(torch.equal(a, c) for a, c in zip(out[0][1], out[1][1]))
 
 
-def test_zamba2_and_xlstm_training_trunks_are_not_ported():
-    for arch in ("zamba2-2.7b", "xlstm-125m"):
-        tcfg = t_smoke(arch)
-        p = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="forward"):
-            tmodel.train_loss(p, tcfg, {k: torch.from_numpy(v) for k, v in
-                                        _batch(tcfg.vocab_size).items()})
+@pytest.mark.parametrize("arch", [ZAMBA, XLSTM])
+def test_recurrent_trunks_remat_bitwise(jax_params, arch):
+    """zamba2's Mamba2 blocks and groups, xlstm's pairs and the sLSTM's
+    64-step time chunks (S = 80 crosses one) recomputed in backward under
+    ``cfg.remat``: the same loss and bitwise the same gradients."""
+    _, tcfg = cfgs(arch)
+    b = {k: torch.from_numpy(v)
+         for k, v in _batch(tcfg.vocab_size, seq=80).items()}
+    out = []
+    for remat in (True, False):
+        tp = from_numpy_tree(jax_params[arch], "cpu")
+        leaves = [t.requires_grad_() for t in topt.tree_leaves(tp)]
+        loss, _ = tmodel.train_loss(tp, tcfg.with_(remat=remat), b)
+        out.append((loss, torch.autograd.grad(loss, leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, c) for a, c in zip(out[0][1], out[1][1]))
+
+
+def test_ssd_gradient_stays_finite_where_the_decay_overflows():
+    """Decays large enough that a chunk's unmasked ``exp(cs_i - cs_j)``
+    overflows (as zamba2's dt grow in training): the reference's
+    ``where(causal, exp(decay), 0)`` sends NaN back through the exp; the
+    port masks before the exp, with the same forward values and a finite
+    gradient."""
+    rng = np.random.default_rng(5)
+    u = rng.normal(size=(1, 16, 2, 4)).astype(np.float32)
+    bi, ci = (rng.normal(size=(1, 16, 3)).astype(np.float32) for _ in "bc")
+    log_a = -rng.uniform(10.0, 20.0, size=(1, 16, 2)).astype(np.float32)
+    jy, jh = jssm._ssd_chunked(u, bi, ci, log_a, 16)
+    jg = jax.grad(lambda la: jssm._ssd_chunked(u, bi, ci, la, 16)[0].sum())(
+        jnp.asarray(log_a))
+    assert np.isnan(np.asarray(jg)).any()
+    tl = torch.from_numpy(log_a).requires_grad_()
+    ty, th = tssm._ssd_chunked(torch.from_numpy(u), torch.from_numpy(bi),
+                               torch.from_numpy(ci), tl, 16)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh),
+                               rtol=1e-5, atol=1e-5)
+    grad, = torch.autograd.grad(ty.sum(), tl)
+    assert torch.isfinite(grad).all()
 
 
 # ---------------------------------------------------------------------------
@@ -523,11 +570,12 @@ def test_checkpoints_restore_across_the_two_packages(tmp_path):
 
 def _three_steps(jax_params, arch, compress):
     jcfg, tcfg = cfgs(arch)
+    lr = STEP_LR.get(arch, LR)
     jp = jax.tree.map(jnp.asarray, jax_params[arch])
     tp = from_numpy_tree(jax_params[arch], "cpu")
-    jo = jopt.make_optimizer(jcfg.optimizer, base_lr=LR, warmup=WARMUP,
+    jo = jopt.make_optimizer(jcfg.optimizer, base_lr=lr, warmup=WARMUP,
                              total=TOTAL)
-    to = topt.make_optimizer(tcfg.optimizer, base_lr=LR, warmup=WARMUP,
+    to = topt.make_optimizer(tcfg.optimizer, base_lr=lr, warmup=WARMUP,
                              total=TOTAL)
     jstep = jax.jit(jtrain.make_train_step(jcfg, jo, compress))
     tstep = ttrain.make_train_step(tcfg, to, compress)
@@ -546,7 +594,7 @@ def _three_steps(jax_params, arch, compress):
             2.0 ** -6 * abs(float(jm["loss"]))
         assert abs(float(tm["gnorm"]) - float(jm["gnorm"])) <= \
             2.0 ** -3 * float(jm["gnorm"])
-    lr_sum = sum(float(jopt.cosine_schedule(LR, WARMUP, TOTAL)(
+    lr_sum = sum(float(jopt.cosine_schedule(lr, WARMUP, TOTAL)(
         jnp.asarray(s))) for s in range(3))
     diffs = [np.abs(_f32(t) - _f32(j)) for _, j, t in _pairs(jp, tp)]
     assert max(d.max() for d in diffs) <= 8 * lr_sum
@@ -554,7 +602,8 @@ def _three_steps(jax_params, arch, compress):
 
 
 @pytest.mark.parametrize("arch,compress", [(BITNET, False), (BITNET, True),
-                                           (PHI, False), (LLAMA4, True)])
+                                           (PHI, False), (LLAMA4, True),
+                                           (ZAMBA, False), (XLSTM, True)])
 def test_three_train_steps_match_jax_jitted_step(jax_params, arch, compress):
     _three_steps(jax_params, arch, compress)
 
@@ -591,6 +640,18 @@ def test_train_cli_saves_then_resumes_on_the_cpu(tmp_path, capsys):
     assert tckpt.latest_step(str(tmp_path)) == 4
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.train(t_smoke(BITNET), steps=1, global_batch=2, seq_len=8)
+
+
+@pytest.mark.parametrize("arch", [ZAMBA, XLSTM])
+def test_train_cli_trains_the_recurrent_archs(tmp_path, capsys, arch):
+    with pytest.raises(SystemExit) as done:
+        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--steps", "2", "--global-batch", "2", "--seq-len", "16",
+                     "--ckpt-dir", str(tmp_path)])
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    assert "step     1" in out and "SKIPPED" not in out
+    assert tckpt.latest_step(str(tmp_path)) == 1
 
 
 def test_train_resumes_bitwise(tmp_path):
