@@ -9,9 +9,11 @@ Builds the eight hand-written CUDA kernels from
 ``grouped_w2a8``; one ``nvcc`` per source, all at once), then serves
 eleven models at full width, each built layer by layer from a seed
 (``decode.init_serving_params``; the bf16 tree is never held), trains
-bitnet at full width and depth and serves the trained weights, and trains
-zamba2 and xlstm at full width and depth.  First, after the kernel
-checks at bitnet's shapes, the hardware-generation side (``hardware``):
+bitnet at full width and depth and serves the trained weights, trains
+zamba2 at full width and depth and xlstm at full width and one layer pair,
+and measures a step's roofline and the packing ablation.  First, after the
+kernel checks at bitnet's shapes, the hardware-generation side
+(``hardware``):
 
   * the paper's model (``repro_torch.core``: the generator, the §IV cost
     model, the DSE) at its design points, printed with Table IV's two
@@ -167,13 +169,38 @@ then training (``launch.train``):
     ``fixed:ref`` (the flow of the reference's
     ``test_full_lifecycle_train_quantize_serve``);
   * ``train_zamba2`` and ``train_xlstm``: zamba2-2.7b (54 Mamba2 layers,
-    the shared block after every 6th) and xlstm-125m (6 mLSTM/sLSTM
-    pairs) at full width and depth, AdamW, 6 steps of 8 x 512 tokens from
-    the seed-0 init: every step finite, the peak device memory under 75
-    GB; step ms, tokens/s, peak GB;
+    the shared block after every 6th) at full width and depth and
+    xlstm-125m at full width with its depth cut to one mLSTM/sLSTM pair
+    of its six (the script's time limit), AdamW, 6 steps of 8 x 512
+    tokens from the seed-0 init: every step finite, the peak device
+    memory under 75 GB; step ms, tokens/s, peak GB;
   * ``train_check`` for zamba2 (one group: 6 Mamba2 blocks and the shared
     block) and xlstm (one pair) at full width, card vs CPU, under
-    bitnet's bounds.
+    bitnet's bounds;
+
+then the dry-run tooling's two phases:
+
+  * ``roofline``: one decode step each of ``batch4`` (bitnet),
+    ``moe_batch4`` (phi3.5) and ``zamba2_batch4``, every slot live,
+    counted on the card inside each path after its timed steps
+    (``launch.roofline.from_trace``: ``launch.op_cost``'s FLOPs and
+    roofline bytes over ``decode.decode_step`` on the live cache) and
+    traced by ``torch.profiler``: the counted FLOPs and bytes, the
+    roofline step on the H100's peaks and its bounding term, the path's
+    measured step ms (untraced wall) and busy ms, and
+    ``roofline_fraction`` = roofline ms / measured step ms; printed after
+    training, one line a path;
+  * ``ablate`` (``launch.ablate``): bitnet at full width and depth,
+    decode at 128 rows against 4,096 cache positions (40.3 GB of bf16
+    KV), once with the bf16 tree of its ternary weights (trits times
+    scale in bf16, a plain bf16 model) and once with the packed tree
+    (``lut_gather`` at M = 128 on the prior, held against its plain
+    version at bitnet's four shapes first): per tree the weight GB, one
+    step's memory term (``op_cost`` on fake tensors), the measured wall
+    ms (median of 10 after 3 warm-up steps) and busy ms; the two trees'
+    logits within 2^-3, or, where the bf16 tree itself (no hand kernel)
+    lies over 2^-3 from the plain path run in f64, both within its f64
+    distance + 2^-3 (``cross_check``'s rule for ``fixed:ref``).
 
 Their kernel phase checks ``lut_gather`` at decode (M=4) and at the longest
 whole prompt (M=120) and ``tl2`` at M=1 on each model's shapes (zamba2's
@@ -398,11 +425,6 @@ LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
 LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1},
              LLAMA4: {(128, 5120, 8192): 2, (128, 8192, 5120): 1},
              ZAMBA: {}, XLSTM: {}, **{m: {} for m in ATTN_ARCHS}}
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-INT8_OPS_PER_S = 1979e12
 #: shared memory returns 128 bytes a clock an SM (times the SMs and the
 #: SM clock read in the run: the ceiling of lut_gather's table reads)
 SMEM_BYTES_PER_CLOCK = 128
@@ -496,6 +518,11 @@ TRAIN_LR = 3e-4
 #: TRAIN_PEAK_GB of device memory
 TRAIN_REC_STEPS = 6
 TRAIN_PEAK_GB = 75.0
+#: the recurrent archs' training depth where the script's time limit cuts
+#: it (full width kept): xlstm one mLSTM/sLSTM pair of its six (at 12
+#: layers its 6 steps took 94-99 s, its sLSTM stepping the 512 positions
+#: one at a time; the whole script then 849 and 970 s)
+TRAIN_REC_LAYERS = {XLSTM: 2}
 #: train_check: depth per arch (the smallest each trunk has: bitnet 2
 #: layers, one zamba2 group of 6 Mamba2 blocks and the shared block, one
 #: xlstm mLSTM/sLSTM pair), the (batch, sequence length) of its
@@ -514,6 +541,16 @@ TRAIN_CHECK_RTOL = {"loss": 2.0 ** -10, "grad": 2.0 ** -4, "update": 2.0 ** -1}
 HW_CORE = {"mu": 3, "L": 32, "K": 32, "act_dtype": "int8"}
 HW_OTHER_MU = (1, 2, 4, 5)
 HW_SIM_REPS = 3
+#: the roofline phase: the paths whose decode step is counted
+#: (``launch.op_cost`` on the card, after the path's timed steps) and
+#: profiled over ROOFLINE_STEPS traced steps
+ROOFLINE_PATHS = ("batch4", "moe_batch4", "zamba2_batch4")
+ROOFLINE_STEPS = 4
+#: the ablate phase (``launch.ablate``): bitnet's bf16 and packed trees at
+#: full width and depth, decode at this batch against a cache of this
+#: many positions (40.3 GB of bf16 KV)
+ABLATE_BATCH = 128
+ABLATE_SEQ = 4096
 #: bitnet's pinned paths (batch 4): name -> (policy, activation dtype)
 PINNED = {"lut_onehot": ("fixed:lut_onehot", "bfloat16"),
           "dequant_packed": ("fixed:dequant_packed", "bfloat16"),
@@ -640,6 +677,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
     from repro_torch.kernels import tl2_matmul as tl2
     from repro_torch.kernels import w2a8_matmul as w8
     from repro_torch.kernels.dispatch import TernaryWeight, cold_times_ms
+    from repro_torch.launch import roofline as rl
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 7 * m + k + n)
@@ -659,7 +697,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
                                             encoding.PACKED_ROW_BYTES)
                           for t in trits.reshape(-1, n, k)]).reshape(
                               *lead, n, -1)
-    rate = F32_OPS_PER_S
+    rate = rl.PEAK_FLOPS_F32
     experts = e or 1
     packed_bytes = experts * n * -(-k // encoding.TRITS_PER_BYTE)
     # ``ops`` is the function's floor on this weight encoding, not what the
@@ -675,7 +713,8 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
         wbytes = packed_bytes     # every expert streams; padding never read
         ops = e * m * n * k
         # the adds run on the tensor cores: s8 for grouped_w2a8, else bf16
-        rate = INT8_OPS_PER_S if name == "grouped_w2a8" else BF16_OPS_PER_S
+        rate = (rl.PEAK_OPS_INT8 if name == "grouped_w2a8"
+                else rl.PEAK_FLOPS_BF16)
     else:
         w = TernaryWeight.from_packed(packed, 1.0, k)
         mu = w.mu
@@ -699,9 +738,10 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
             # the adds run on the bf16 tensor cores; the design's ceiling:
             # one m16n8k16 MMA (4096 flops) per group, 16 columns and 8
             # (row, bf16 term) slots, 3 terms a row, at the peak rate
-            rate = BF16_OPS_PER_S
+            rate = rl.PEAK_FLOPS_BF16
             mmas = -(-n // 16) * G * -(-3 * m // 8)
-            ceiling = ("tensor cores", mmas * 4096 / BF16_OPS_PER_S * 1e3)
+            ceiling = ("tensor cores",
+                       mmas * 4096 / rl.PEAK_FLOPS_BF16 * 1e3)
         else:
             # the design's ceiling: one 4-byte table read per key and row
             ceiling = ("shared memory",
@@ -716,28 +756,28 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
         wbytes = words.numel() * words.element_size()   # padding never read
         ops = m * n * k
         # the adds run on the tensor cores: s8 for int8 x, else bf16
-        rate = INT8_OPS_PER_S if act == "int8" else BF16_OPS_PER_S
+        rate = rl.PEAK_OPS_INT8 if act == "int8" else rl.PEAK_FLOPS_BF16
     elif name == "dequant_packed":
         fn = deq.packed_matmul
         kernel = lambda: fn(x, packed, k)                       # noqa: E731
         plain = lambda: deq.packed_matmul_torch(x, packed, k)   # noqa: E731
         wbytes = packed_bytes                # the padding is never read
         ops = m * n * k
-        rate = BF16_OPS_PER_S       # the adds run on the bf16 tensor cores
+        rate = rl.PEAK_FLOPS_BF16   # the adds run on the bf16 tensor cores
     elif name == "w2a8":
         fn = w8.w2a8_matmul
         kernel = lambda: fn(x, packed, k)                       # noqa: E731
         plain = lambda: w8.w2a8_matmul_torch(x, packed, k)      # noqa: E731
         wbytes = packed_bytes
         ops = m * n * k
-        rate = INT8_OPS_PER_S
+        rate = rl.PEAK_OPS_INT8
     elif name == "signflip":
         wt = w.trits()
         kernel = lambda: sf.signflip_matmul(x, wt)              # noqa: E731
         plain = lambda: sf.signflip_matmul_torch(x, wt)         # noqa: E731
         wbytes = wt.numel()
         ops = m * n * k
-        rate = BF16_OPS_PER_S       # the adds run on the bf16 tensor cores
+        rate = rl.PEAK_FLOPS_BF16   # the adds run on the bf16 tensor cores
     elif name not in GROUPED_KERNELS:
         raise KeyError(name)
     wd = trits.to(torch.bfloat16).transpose(-1, -2)     # decoded [.., K, N]
@@ -765,7 +805,7 @@ def kernel_case(torch, name: str, m: int, k: int, n: int, act: str, flush,
             raise AssertionError(f"{name} E={e} M={m} K={k} N={n}: max abs "
                                  f"err {err} > {tol}")
     nbytes = x.numel() * x.element_size() + wbytes + experts * m * n * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / rl.HBM_BW * 1e3
     t_ops = ops / rate * 1e3
 
     row = {"kernel": name, "E": e, "M": m, "K": k, "N": n, "act": act,
@@ -957,6 +997,8 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
     """One kernel's numbers for one layer of ``model`` at the main path's
     M or C: the sums over the layer's projections (or expert stacks) of
     the per-shape times."""
+    from repro_torch.launch.roofline import HBM_BW
+
     grouped = name in GROUPED_KERNELS
     counts = ({(k, n): c for (_, k, n), c in LAYER_EKN[model].items()}
               if grouped else LAYER_KN[model])
@@ -968,7 +1010,7 @@ def layer_summary(rows: list[dict], name: str, model: str, m: int,
     tot = {key: sum(sel[kn][key] * c for kn, c in counts.items())
            for key in keys}
     t_bytes = sum(sel[kn]["bytes"] * c for kn, c in counts.items()) \
-        / HBM_BYTES_PER_S * 1e3
+        / HBM_BW * 1e3
     t_ops = sum(sel[kn]["ops"] / sel[kn]["ops_per_s"] * c
                 for kn, c in counts.items()) * 1e3
     what = ("3 expert stacks (wi, wg, wo)" if grouped else
@@ -1018,12 +1060,13 @@ def make_requests(lengths, new_tokens: int, vocab: int, seed: int):
 
 
 def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
-               new_tokens: int, checked: set) -> dict:
+               new_tokens: int, checked: set, roofline: bool = False) -> dict:
     """Serve one path (``cfg.matmul_policy``) and return its record.  A
     one-request warm-up first derives the kernels' weight encodings (set-up,
     untimed); then the counters are set to 0, the requests are served, and
     the counters read.  Every hand kernel the path selects must be in
-    ``checked`` and must have launched; no other hand kernel may have."""
+    ``checked`` and must have launched; no other hand kernel may have.
+    With ``roofline``, the record also holds :func:`roofline_step`'s."""
     from repro_torch.kernels.dispatch import (launch_counts,
                                               reset_launch_counts)
     from repro_torch.serving.engine import DecodeEngine
@@ -1074,6 +1117,7 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
         for shape, name in selection.items()}
     n_tok = sum(len(r.out) for r in reqs)
     step_ms, step_launches = decode_step_ms(torch, engine, cfg, lengths[0])
+    roof = roofline_step(torch, engine, cfg, step_ms) if roofline else None
     del engine
     return {"model": model, "policy": cfg.matmul_policy or "auto",
             "act": act, "batch": batch, "requests": len(reqs),
@@ -1083,7 +1127,8 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
             "seconds": dt, "tokens_per_s": n_tok / dt,
             "decode_step_ms": step_ms,
             "launches_per_decode_step": step_launches, "launches": counts,
-            "selected": selected}
+            "selected": selected,
+            **({"roofline": roof} if roof is not None else {})}
 
 
 def check_launches(counts: dict, expect: set) -> None:
@@ -1519,6 +1564,52 @@ def decode_step_ms(torch, engine, cfg, plen: int = 8, steps: int = 10):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / steps * 1e3
     return ms, {k: v / steps for k, v in launch_counts().items() if v}
+
+
+def roofline_step(torch, engine, cfg, step_ms: float) -> dict:
+    """One decode step of ``engine`` with every slot live (8-token
+    prompts), after the path's timed steps: its FLOPs and bytes counted on
+    the card (``launch.roofline.from_trace``: ``launch.op_cost`` over
+    ``decode.decode_step`` on the live cache), its roofline on the H100's
+    peaks, which term bounds it, and its busy ms (``launch.profile``'s
+    ``profile_steps`` over ``ROOFLINE_STEPS`` traced steps);
+    ``roofline_fraction`` is the roofline step over the path's measured
+    step (``step_ms``, untraced wall time)."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.profile import profile_steps
+    from repro_torch.models.decode import decode_step
+
+    plen = 8
+    state = engine.sched_start()
+    for slot, r in enumerate(make_requests([plen] * engine.B, 4,
+                                           cfg.vocab_size, SEED + 5)):
+        state = engine.sched_admit(state, slot, r)
+    state, _, _ = engine.sched_step(state)
+    tokens = state["logits"].argmax(-1).to(torch.int32)
+    index = state["index"] + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roof, detail = rl.from_trace(decode_step, engine.params, engine.cfg,
+                                 state["cache"], tokens, index)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_steps(engine, ROOFLINE_STEPS, plen)
+    profile_s = time.perf_counter() - t0
+    roof_ms = roof.step_time_s * 1e3
+    busy = prof["device_busy_ms_per_step"]
+    return {"flops": roof.flops_per_device, "bytes": roof.bytes_per_device,
+            "bytes_materialized": detail["bytes_materialized"],
+            "raw_flop_counter_flops": detail["raw_flop_counter_flops"],
+            "ops_counted": detail["ops"],
+            "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3, "roofline_ms": roof_ms,
+            "bound_by": roof.bottleneck, "step_ms": step_ms,
+            "busy_ms": busy, "traced_wall_ms": prof["wall_ms_per_step"],
+            "idle_share": prof["device_idle_share"],
+            "roofline_fraction": roof_ms / step_ms,
+            "roofline_fraction_of_busy": roof_ms / busy,
+            "count_s": count_s, "profile_s": profile_s}
 
 
 def _prompt_chunks(torch, cfg):
@@ -2273,7 +2364,8 @@ def recurrent_phase(torch, rows: list, checked: set, flush,
 
         def run_path(name, **kw):
             paths[name] = serve_path(torch, served, cfg, model,
-                                     checked=checked, **kw)
+                                     checked=checked,
+                                     roofline=name in ROOFLINE_PATHS, **kw)
             emit(f"serve_{name}", gpu=card, **paths[name])
             torch.cuda.empty_cache()
 
@@ -2579,17 +2671,19 @@ def train_check(torch, arch: str = ARCH) -> dict:
 
 
 def train_recurrent(torch, card, arch: str) -> dict:
-    """``arch`` (zamba2 or xlstm) at full width and depth in QAT on AdamW:
-    ``train()`` from the seed-0 init for ``TRAIN_REC_STEPS`` steps of
-    ``TRAIN_BATCH`` rows of ``TRAIN_SEQ`` tokens.  Every step must
-    be finite and none skipped, and the peak device memory under
-    ``TRAIN_PEAK_GB``."""
+    """``arch`` (zamba2 or xlstm) at full width and depth (xlstm's cut to
+    ``TRAIN_REC_LAYERS``) in QAT on AdamW: ``train()`` from the seed-0
+    init for ``TRAIN_REC_STEPS`` steps of ``TRAIN_BATCH`` rows of
+    ``TRAIN_SEQ`` tokens.  Every step must be finite and none skipped, and
+    the peak device memory under ``TRAIN_PEAK_GB``."""
     import gc
 
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import train
 
     cfg = get_config(arch)
+    full = cfg.n_layers
+    cfg = cfg.with_(n_layers=TRAIN_REC_LAYERS.get(arch, full))
     batch = TRAIN_BATCH
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2608,7 +2702,7 @@ def train_recurrent(torch, card, arch: str) -> dict:
     if not peak < TRAIN_PEAK_GB:
         raise AssertionError(f"{arch}: training peaked at {peak} GB, not "
                              f"under {TRAIN_PEAK_GB}")
-    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "full_depth": full,
             "d_model": cfg.d_model, "optimizer": cfg.optimizer,
             "quantize_acts": cfg.quantize_acts, "remat": cfg.remat,
             "gpu": card, "global_batch": batch, "seq_len": TRAIN_SEQ,
@@ -2651,6 +2745,50 @@ def train_phase(torch, checked: set, card: str) -> dict:
     for arch in (ZAMBA, XLSTM):
         emit("train_check", gpu=card, **train_check(torch, arch))
     return {"train_then_serve": path}
+
+
+def ablate_phase(torch, rows: list, checked: set, flush, card) -> dict:
+    """The packing ablation (``launch.ablate.run``): bitnet's bf16 and
+    packed trees at full width and depth, decode at ``ABLATE_BATCH`` rows
+    against ``ABLATE_SEQ`` cache positions.  First the hand kernels the
+    packed arm selects at M = ``ABLATE_BATCH`` (on the prior) are held
+    against their plain versions at bitnet's shapes (appended to ``rows``
+    and ``checked``); the launch counters are set to 0 just before the
+    ablation and read just after.  Returns ``{path: record}``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.launch import ablate
+
+    selection = {shape: name for shape, name in path_selection(
+        ARCH, ABLATE_BATCH, "bfloat16", "prior").items()
+        if shape[-3] == ABLATE_BATCH}
+    cases = selected_cases(ARCH, selection, "bfloat16")
+    rows += check_kernels(torch, sorted(cases - checked), flush)
+    checked |= cases
+    for _, name, m, act in sorted(cases):
+        emit("layer", kernel=name, **layer_summary(rows, name, ARCH, m, act))
+    reset_launch_counts()
+    rec = ablate.run(get_config(ARCH), ABLATE_BATCH, ABLATE_SEQ,
+                     torch.device(DEVICE), SEED)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(counts, {name for _, name, _, _ in cases})
+    if not rec["logits_held"]:
+        raise AssertionError(f"ablate: the packed and bf16 trees' logits "
+                             f"differ by {rec['logits_max_abs_diff']} > "
+                             f"{rec['logits_atol']}, and not by the bf16 "
+                             f"model's own drift (f64 distances "
+                             f"{rec['f64_distance_bf16']}, "
+                             f"{rec['f64_distance_packed']})")
+    for arm in ("bf16", "packed"):
+        rec[arm].pop("wall_ms_all")
+    rec.update(launches=counts, selected={
+        ":".join(f"{d}{v}" for d, v in zip("MKN", shape)): name
+        for shape, name in selection.items()})
+    emit("ablate", gpu=card, **rec)
+    torch.cuda.empty_cache()
+    return {"ablate_packed": rec}
 
 
 # ---------------------------------------------------------------------------
@@ -2922,7 +3060,7 @@ def main() -> int:
 
     def run_path(name, c, model=ARCH, **kw):
         paths[name] = serve_path(torch, served, c, model, checked=checked,
-                                 **kw)
+                                 roofline=name in ROOFLINE_PATHS, **kw)
         emit(f"serve_{name}", gpu=card, **paths[name])
         torch.cuda.empty_cache()
 
@@ -3023,10 +3161,17 @@ def main() -> int:
 
     # 7. llama4-maverick's dense/MoE interleave at a cut depth
     paths.update(llama4_phase(torch, rows, checked, flush, card))
-    del flush
 
     # 8. training: bitnet at full width and depth, then served
     paths.update(train_phase(torch, checked, card))
+
+    # 9. the roofline of three paths' decode steps (counted inside each
+    # path, after its timed steps), then the packing ablation
+    for name in ROOFLINE_PATHS:
+        emit("roofline", path=name, model=paths[name]["model"], gpu=card,
+             **paths[name]["roofline"])
+    paths.update(ablate_phase(torch, rows, checked, flush, card))
+    del flush
 
     kernels = []
     for name, (src, replaces, model, m, act) in SOURCES.items():

@@ -56,6 +56,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import encoding
@@ -163,6 +164,11 @@ class TernaryWeight:
                 encoding.table_size(mu))[:, :keys.shape[1]]
         return self._keys[mu]
 
+    def stored(self) -> torch.Tensor:
+        """The tensor the served tree stores for this weight: its base-3
+        bytes (rows padded as served), or the trits it was made from."""
+        return self._packed if self._packed is not None else self._w_t
+
     def tl2(self) -> torch.Tensor:
         """TL2 words ``[N, ceil(K/10)]`` held as int16 (tl2 path): one
         view, kept, of rows padded to :data:`tl2_matmul.ROW_BYTES` with the
@@ -227,6 +233,11 @@ class GroupedTernaryWeight:
 
     def packed(self) -> torch.Tensor:
         """Stacked base-3 packed bytes ``[E, N, ceil(K/5)(+pad)]``."""
+        return self._packed
+
+    def stored(self) -> torch.Tensor:
+        """The tensor the served tree stores for this stack: its base-3
+        bytes."""
         return self._packed
 
     def trits(self) -> torch.Tensor:
@@ -753,6 +764,60 @@ def per_position_launches():
         _PER_POSITION.reset(token)
 
 
+#: the op counter (``launch.op_cost.OpCounter``) of the trace in progress
+_COST: ContextVar = ContextVar("op_cost", default=None)
+
+
+@contextmanager
+def cost_scope(counter):
+    """Within the block, :func:`ternary_matmul` and
+    :func:`grouped_ternary_matmul` report each call to ``counter`` (its
+    ``ternary_matmul``) and run the selected kernel inside
+    ``counter.paused()``: the hand kernels launch where no dispatch mode
+    sees them, and the plain versions' torch ops on the CPU would count a
+    second time.  Only within such a block do they take shape-only (fake
+    or meta) tensors: they select as a fresh card would (``cuda``, the
+    prior on an empty autotune cache) and return an empty product of the
+    right shape, computing nothing."""
+    token = _COST.set(counter)
+    try:
+        yield counter
+    finally:
+        _COST.reset(token)
+
+
+def _shape_only(t: torch.Tensor) -> bool:
+    return t.device.type == "meta" or isinstance(t, FakeTensor)
+
+
+def _where(x: torch.Tensor, cache):
+    """``(device, cache)`` to select on: a shape-only ``x`` (inside a
+    :func:`cost_scope` only) selects as a fresh card would."""
+    if not _shape_only(x):
+        return x.device.type, cache
+    if _COST.get() is None:
+        raise ValueError(
+            "a fake or meta tensor reached ternary-matmul dispatch outside "
+            "an op-count trace (launch.op_cost.OpCounter); no kernel takes "
+            "one")
+    return "cuda", cache if cache is not None else AutotuneCache(
+        path=os.devnull)
+
+
+def _run(spec: KernelSpec, x: torch.Tensor, w, mu: int,
+         out_shape: tuple, e: int | None = None) -> torch.Tensor:
+    """``spec.run(x, w, mu)``, reported to the active op counter and run
+    paused within its scope (an empty f32 product for shape-only ``x``)."""
+    cost = _COST.get()
+    if cost is None:
+        return spec.run(x, w, mu)
+    cost.ternary_matmul(spec, x, w, mu, e)
+    with cost.paused():
+        if _shape_only(x):
+            return x.new_empty(out_shape, dtype=torch.float32)
+        return spec.run(x, w, mu)
+
+
 def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
                    policy: str | None = None, mu: int | None = None,
                    cache: AutotuneCache | None = None) -> torch.Tensor:
@@ -764,7 +829,7 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
     inputs, f32 for int8.  An f64 ``x`` (the plain path's f64 yardstick,
     ``decode.f64_params``) runs only under ``policy="fixed:ref"``, the
     plain product in f64; under any other policy it raises, as no kernel
-    takes f64.  See :func:`per_position_launches`."""
+    takes f64.  See :func:`per_position_launches` and :func:`cost_scope`."""
     if _PER_POSITION.get() and x.ndim == 3 and x.shape[1] > 1:
         return torch.stack([ternary_matmul(x[:, j], w, scale=scale,
                                            policy=policy, mu=mu, cache=cache)
@@ -777,15 +842,16 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight, *, scale=None,
     x2 = x.reshape(-1, k)
     n = w.out_features
     act = _dtype_name(x.dtype)
+    device, cache = _where(x2, cache)
     if act != "float64":
         spec = select_kernel(x2.shape[0], k, n, act, policy=policy,
-                             device=x.device.type, cache=cache, mu=mu)
+                             device=device, cache=cache, mu=mu)
     elif policy == "fixed:ref":
         spec = REGISTRY["ref"]
     else:
         raise ValueError(f"f64 activations (the plain path's f64 yardstick) "
                          f"run only under policy 'fixed:ref', not {policy!r}")
-    y = spec.run(x2, w, mu)
+    y = _run(spec, x2, w, mu, (x2.shape[0], n))
     s = w.scale if scale is None else scale
     if s is not None:
         y = y * torch.as_tensor(s, dtype=torch.float32, device=y.device)
@@ -818,9 +884,10 @@ def grouped_ternary_matmul(x: torch.Tensor, w: GroupedTernaryWeight, *,
     n = w.out_features
     x3 = x.reshape(E, -1, k)
     act = _dtype_name(x.dtype)
+    device, cache = _where(x3, cache)
     spec = select_kernel(x3.shape[1], k, n, act, policy=policy,
-                         device=x.device.type, cache=cache, mu=mu, e=E)
-    y = spec.run(x3, w, mu)
+                         device=device, cache=cache, mu=mu, e=E)
+    y = _run(spec, x3, w, mu, (E, x3.shape[1], n), e=E)
     s = w.scale if scale is None else scale
     if s is not None:
         s = torch.as_tensor(s, dtype=torch.float32, device=y.device)

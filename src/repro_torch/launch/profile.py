@@ -2,7 +2,7 @@
 
 Builds the engine as ``launch.serve`` does (random weights from a seed,
 packed layer by layer, every slot admitted), then runs ``--steps`` decode
-steps under ``torch.profiler`` with CPU and CUDA activities and prints one
+steps under ``torch.profiler`` (the card's activity) and prints one
 JSON line:
 wall time per step, device busy time per step (the summed device time of
 every kernel and copy on the card), the device's idle share, kernel launches
@@ -67,7 +67,9 @@ def _on_device(evt) -> bool:
 
 def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict:
     """Admit one request per slot, warm up, and trace ``steps`` decode
-    steps.  Returns the per-step breakdown."""
+    steps.  Returns the per-step breakdown.  The trace holds the card's
+    activity only, all the breakdown reads (the host's ops too would
+    multiply the time a trace takes, for the same busy ms)."""
     state = engine.sched_start()
     for slot in range(engine.B):
         req = Request(prompt=list(range(2 + slot, 2 + slot + prompt_len)),
@@ -77,7 +79,7 @@ def profile_steps(engine: DecodeEngine, steps: int, prompt_len: int = 8) -> dict
         state, _, _ = engine.sched_step(state)
     torch.cuda.synchronize()
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _, _ = engine.sched_step(state)

@@ -366,7 +366,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "data/pipeline.py", "checkpoint/checkpointing.py",
             "launch/train.py", "core/netlist.py", "core/lut_algorithm.py",
             "core/generator.py", "core/simulator.py", "core/dse.py",
-            "core/calibration.py"} <= names
+            "core/calibration.py", "configs/shapes.py", "launch/op_cost.py",
+            "launch/roofline.py", "launch/dryrun.py", "launch/report.py",
+            "launch/ablate.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert offenders == []
@@ -377,7 +379,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.optim.optimizers, "
             "repro_torch.optim.compression, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.checkpointing, repro_torch.core, "
-            "repro_torch.core.simulator, repro_torch.core.calibration; "
+            "repro_torch.core.simulator, repro_torch.core.calibration, "
+            "repro_torch.configs.shapes, repro_torch.launch.op_cost, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+            "repro_torch.launch.report, repro_torch.launch.ablate; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
