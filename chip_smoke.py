@@ -39,6 +39,21 @@ bitnet-b1.58-2b (30 layers, d_model 2560), through ``DecodeEngine`` under
 
   * on the analytical prior, with an empty autotune cache: batch 4 (the
     main path, ``lut_gather``), batch 1 and int8 activations (``tl2``);
+  * sharded (``sharded_phase``, after the prior paths): the batch-4
+    requests served by ``DecodeEngine(mesh=...)`` as two ranks of this
+    one card (``launch.mesh.run_ranks`` over gloo, which stages every
+    collective through the host: NCCL refuses two ranks on one GPU), each
+    rank building bitnet from the seed and keeping its slice, at mesh
+    ``1x2`` (each rank its half of the packed rows of wq, wi, wg and both
+    wo, every scale whole, the kv projections whole; exact gathers join
+    the columns) and ``2x1`` (each rank 2 of the 4 rows); the kernels are
+    held against their plain versions first at every local shape the
+    ranks run; every rank's launches must be its selection, the ranks'
+    streams equal and equal to ``batch4``'s (where they part, the
+    single-device top-2 margin there below 2^-3, as
+    ``zamba2_generational``); per rank its launches, gathers (calls,
+    bytes, host ms) and tokens/s, labelled as gloo through the host on
+    one card, not a tensor-parallel speed;
   * autotuned: ``DecodeEngine.autotune_shapes`` times every eligible kernel
     at the engine's shapes (bf16 and int8, batch 4; twice, to show how far
     the winners repeat), then batch 4 serves under ``auto`` on those
@@ -241,6 +256,15 @@ Tolerances:
     and the same scales follow, so every int8 path (prior, autotuned,
     ``fixed:w2a8``, ``moe_int8_w2a8``) must equal ``fixed:ref`` exactly
     (atol 0).
+  * sharded prefill logits (``sharded_phase``): the cross-check prompt
+    admitted under ``fixed:lut_gather`` by each mesh's ranks against one
+    device, held to 2^-4, the port's serving tolerance, and reported with
+    whether they are bitwise equal: the ranks' projections compute whole
+    output columns over the same K, but the f32 hand kernels plan their
+    column tiles and K split from N (``split_check``: the bf16 head and
+    the attention over a rank's kv groups are bitwise, ``w2a8`` too), so
+    at half the columns a column's sum is ordered otherwise (on an NVIDIA
+    H100 80GB HBM3 at 700 W: 0.0547 at 1x2, 2x1 bitwise).
   * verify against sequential decode (``verify_check``): ``lut_gather``
     plans its launch by M (16 at the verify, 4 at decode), so the two sum
     each row in another order and the logits differ in f32 rounding: held
@@ -422,9 +446,27 @@ LAYER_KN = {ARCH: {(2560, 2560): 2, (2560, 640): 2, (2560, 6912): 2,
                     (768, 2048): 1, (1024, 768): 1}}
 #: per model, (E, K, N) of its expert stacks and how many one layer has:
 #: wi, wg | wo
+#: sharded serving (``sharded_phase``): bitnet at full width and depth as
+#: two ranks of one card, over gloo (NCCL refuses two ranks on one GPU),
+#: at these meshes, one spawn of the two ranks serving both; the local
+#: shapes a rank runs at 1x2 are their own "model" (each rank's wq, attention
+#: wo | the replicated wk, wv (5 kv heads) | wi, wg | the FFN's wo); at 2x1
+#: nothing is split and a rank decodes 2 of the 4 rows
+SHARD_MESHES = ("1x2", "2x1")
+SHARD_BACKEND = "gloo"
+SHARD_1X2 = f"{ARCH}@1x2"
+LAYER_KN[SHARD_1X2] = {(2560, 1280): 2, (2560, 640): 2, (2560, 3456): 2,
+                       (6912, 1280): 1}
+#: sharded prefill logits against single-device ones under fixed:lut_gather
+#: (see the module docstring)
+SHARD_LOGIT_ATOL = 2.0 ** -4
+#: the per-rank line's label: what its times are, and are not
+SHARD_LABEL = ("gloo through the host, one card: not a tensor-parallel "
+               "speed")
 LAYER_EKN = {ARCH: {}, MOE_ARCH: {(16, 4096, 6400): 2, (16, 6400, 4096): 1},
              LLAMA4: {(128, 5120, 8192): 2, (128, 8192, 5120): 1},
-             ZAMBA: {}, XLSTM: {}, **{m: {} for m in ATTN_ARCHS}}
+             ZAMBA: {}, XLSTM: {}, SHARD_1X2: {},
+             **{m: {} for m in ATTN_ARCHS}}
 #: shared memory returns 128 bytes a clock an SM (times the SMs and the
 #: SM clock read in the run: the ceiling of lut_gather's table reads)
 SMEM_BYTES_PER_CLOCK = 128
@@ -836,7 +878,7 @@ def capacity(model: str, m: int) -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.models.layers import moe_capacity
 
-    return moe_capacity(get_config(model), m)
+    return moe_capacity(get_config(arch_of(model)), m)
 
 
 def path_selection(model: str, batch: int, act: str,
@@ -854,7 +896,7 @@ def path_selection(model: str, batch: int, act: str,
     sel = {}
     prefill_m = WHOLE_M if model in WHOLE_PROMPT else PREFILL_CHUNK
     # whisper's encoder and cross keys and values run at M = enc_seq
-    enc = get_config(model).enc_seq
+    enc = get_config(arch_of(model)).enc_seq
     for m in (batch, prefill_m) + ((batch * spec_k,) if spec_k else ()) + \
             ((enc,) if enc else ()):
         for k, n in LAYER_KN[model]:
@@ -864,6 +906,12 @@ def path_selection(model: str, batch: int, act: str,
             sel[(e, c, k, n)] = select_kernel(c, k, n, act, policy=policy,
                                               e=e).name
     return sel
+
+
+def arch_of(model: str) -> str:
+    """The arch of a ``LAYER_KN`` key (a sharded path's local shapes are
+    keyed ``<arch>@<mesh>``)."""
+    return model.split("@")[0]
 
 
 def cross_length(model: str) -> int:
@@ -1060,13 +1108,15 @@ def make_requests(lengths, new_tokens: int, vocab: int, seed: int):
 
 
 def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
-               new_tokens: int, checked: set, roofline: bool = False) -> dict:
+               new_tokens: int, checked: set, roofline: bool = False,
+               streams: list | None = None) -> dict:
     """Serve one path (``cfg.matmul_policy``) and return its record.  A
     one-request warm-up first derives the kernels' weight encodings (set-up,
     untimed); then the counters are set to 0, the requests are served, and
     the counters read.  Every hand kernel the path selects must be in
     ``checked`` and must have launched; no other hand kernel may have.
-    With ``roofline``, the record also holds :func:`roofline_step`'s."""
+    With ``roofline``, the record also holds :func:`roofline_step`'s;
+    ``streams`` gets the requests' token streams."""
     from repro_torch.kernels.dispatch import (launch_counts,
                                               reset_launch_counts)
     from repro_torch.serving.engine import DecodeEngine
@@ -1106,6 +1156,8 @@ def serve_path(torch, served, cfg, model: str, *, batch: int, lengths,
                 not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid} ended with {r.out} "
                                  f"(done={r.done})")
+    if streams is not None:
+        streams.extend(r.out for r in reqs)
     # no prefix store, so cache affinity leaves admission FIFO
     if [r.rid for r in sched.admission_order] != [r.rid for r in reqs] or \
             sched.stats.affinity_reorders:
@@ -2299,6 +2351,264 @@ def recurrent_check(torch, served, cfg, S: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def sharded_rank(mesh, device, cfg, lengths, new_tokens: int) -> dict:
+    """One rank of ``sharded_phase``: ``cfg`` (bitnet's) built from the seed
+    on this rank's card, then for each of ``SHARD_MESHES`` (the first is ``mesh``,
+    the others built over the same world) an engine on the prior serving
+    the batch-4 path's requests with the launch counters and the mesh's
+    collective counts set to 0 just before and read just after, and an
+    engine pinned to ``lut_gather`` admitting the cross-check prompt (its
+    last position's logits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.dispatch import (launch_counts,
+                                              reset_launch_counts)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.decode import init_serving_params
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    served = init_serving_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    sync()
+    out = {"build_s": time.perf_counter() - t0, "meshes": {}}
+    meshes = [mesh] + [make_serving_mesh(spec, backend=mesh.backend)
+                       for spec in SHARD_MESHES[1:]]
+    prompt = np.random.default_rng(SEED + 5).integers(
+        2, cfg.vocab_size, size=CROSS_LENGTH).tolist()
+    for spec, m in zip(SHARD_MESHES, meshes):
+        engine = DecodeEngine(served, cfg, batch_size=4, max_len=256,
+                              prefill_chunk=PREFILL_CHUNK, device=device,
+                              mesh=m)
+        engine.serve(make_requests([lengths[0]], 2, cfg.vocab_size,
+                                   SEED + 99))
+        sync()
+        reqs = make_requests(lengths, new_tokens, cfg.vocab_size, SEED + 4)
+        sched = ContinuousScheduler(engine)
+        for r in reqs:
+            sched.submit(r)
+        reset_launch_counts()
+        m.stats.reset()
+        t1 = time.perf_counter()
+        sched.run()
+        sync()
+        dt = time.perf_counter() - t1
+        counts = launch_counts()
+        n_tok = sum(len(r.out) for r in reqs)
+        rec = {"mesh": spec, "coords": m.coords, "seconds": dt,
+               "tokens": n_tok, "tokens_per_s": n_tok / dt,
+               "decode_steps": sched.stats.decode_steps,
+               "prefill_chunks": sched.stats.prefill_chunks,
+               "launches": counts, "gathers": m.stats.as_dict(),
+               "streams": [r.out for r in reqs],
+               "done": all(r.done for r in reqs),
+               "universe": engine.matmul_shape_universe(),
+               "cache_k": list(engine.sched_start()["cache"]["k"].shape)}
+        del engine
+        pinned = DecodeEngine(
+            served, cfg.with_(matmul_policy="fixed:lut_gather"),
+            batch_size=4, max_len=256, prefill_chunk=PREFILL_CHUNK,
+            device=device, mesh=m)
+        state = pinned.sched_admit(pinned.sched_start(), 0,
+                                   Request(prompt=prompt))
+        rec["logits"] = state["logits"][0, :cfg.vocab_size].float().cpu() \
+            .numpy()
+        del pinned, state
+        out["meshes"][spec] = rec
+    if device.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return out
+
+
+def split_check(torch) -> dict:
+    """Which products a 1x2 rank runs sum each output column as the whole
+    product does: each dense hand kernel (``REGISTRY[name].run``, as
+    dispatch launches it) on a random weight against the concatenation of
+    the same kernel on its two halves of rows, at bitnet's shapes and the
+    decode and admission M; the bf16 head (``torch.matmul`` at the whole
+    and half vocab); and the attention (``layers._sdpa``) over bitnet's 5
+    kv groups against a rank's 3 (q zero-padded to whole groups, as
+    ``layers._local_groups``).  Returns, per product, whether every case
+    was bitwise equal and the largest difference."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import encoding
+    from repro_torch.kernels.dispatch import REGISTRY, TernaryWeight
+    from repro_torch.models import layers
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    out = {}
+
+    def record(name, a, b):
+        d = float((a.double() - b.double()).abs().max())
+        prev = out.get(name, {"bitwise": True, "max_abs": 0.0})
+        out[name] = {"bitwise": prev["bitwise"] and torch.equal(a, b),
+                     "max_abs": max(prev["max_abs"], d)}
+
+    def weight(trits):
+        return TernaryWeight.from_packed(encoding.pad_rows(
+            encoding.pack_base3(trits), encoding.PACKED_ROW_BYTES), 1.0,
+            trits.shape[1])
+
+    for m in (4, PREFILL_CHUNK):
+        for k, n in ((2560, 2560), (2560, 6912), (6912, 2560)):
+            trits = torch.randint(-1, 2, (n, k), generator=g, device=dev,
+                                  dtype=torch.int8)
+            whole, halves = weight(trits), [weight(t.contiguous())
+                                            for t in trits.chunk(2)]
+            xb = torch.randn((m, k), generator=g, device=dev,
+                             dtype=torch.bfloat16)
+            x8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                               dtype=torch.int8)
+            for name in ("lut_gather", "lut_onehot", "tl2", "dequant_packed",
+                         "signflip", "w2a8"):
+                x = x8 if name == "w2a8" else xb
+                run = REGISTRY[name].run
+                record(name, run(x, whole, 3),
+                       torch.cat([run(x, h, 3) for h in halves], -1))
+        h = torch.randn((m, 2560), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        head = torch.randn((2560, 128256), generator=g, device=dev,
+                           dtype=torch.bfloat16) * 0.02
+        record("lm_head", h @ head, torch.cat(
+            [h @ w.contiguous() for w in head.chunk(2, 1)], -1))
+    cfg = get_config(ARCH)
+    for sq, sk in ((1, 256), (PREFILL_CHUNK, 256)):
+        q = torch.randn((4, sq, 20, 128), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        kv = [torch.randn((4, sk, 5, 128), generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+        qp = torch.arange(sk - sq, sk, device=dev).expand(4, sq)
+        kp = torch.arange(sk, device=dev).expand(4, sk)
+        full = layers._sdpa(q, *kv, cfg, q_pos=qp, k_pos=kp).reshape(
+            4, sq, 20, 128)
+        for h0, (g0, g1), front in ((0, (0, 3), 0), (10, (2, 5), 2)):
+            qr = torch.nn.functional.pad(q[:, :, h0:h0 + 10],
+                                         (0, 0, front, 12 - 10 - front))
+            part = layers._sdpa(qr, kv[0][:, :, g0:g1], kv[1][:, :, g0:g1],
+                                cfg, q_pos=qp, k_pos=kp).reshape(
+                                    4, sq, 12, 128)
+            record("attention", full[:, :, h0:h0 + 10],
+                   part[:, :, front:front + 10])
+    return out
+
+
+def sharded_phase(torch, served, cfg, rows: list, checked: set, flush,
+                  card: str, batch4_streams) -> dict:
+    """bitnet at full width and depth served as two ranks of one card
+    (``launch.mesh.run_ranks`` over ``SHARD_BACKEND``, the kernels built
+    before the ranks start), at each of ``SHARD_MESHES``: the kernels at the
+    local shapes a rank runs held against their plain versions first; each
+    rank's launches must be its path's selection (checked), every rank's
+    streams equal, and equal to the ``batch4`` path's (where they part, the
+    single-device top-2 margin there below 2^-3, as ``generational_path``);
+    the prefill logits under ``fixed:lut_gather`` within
+    ``SHARD_LOGIT_ATOL`` of the single-device ones.  Returns the paths'
+    records."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.serving.engine import DecodeEngine
+
+    lut = "fixed:lut_gather"
+    # what each mesh's ranks dispatch: 1x2 at its local shapes (decode M=4,
+    # the admission chunk M=32, on the prior and pinned), 2x1 at bitnet's
+    # (decode M=2, chunk M=32)
+    select = {"1x2": path_selection(SHARD_1X2, 4, "bfloat16"),
+              "2x1": path_selection(ARCH, 2, "bfloat16")}
+    cases = (selected_cases(SHARD_1X2, select["1x2"], "bfloat16")
+             | selected_cases(SHARD_1X2, path_selection(
+                 SHARD_1X2, 4, "bfloat16", lut), "bfloat16"))
+    rows += check_kernels(torch, sorted(cases - checked), flush)
+    checked |= cases
+    emit("split_check", gpu=card, **split_check(torch))
+    for name, mdl in (("1x2", SHARD_1X2), ("2x1", ARCH)):
+        unchecked = selected_cases(mdl, select[name], "bfloat16") - checked
+        if unchecked:
+            raise AssertionError(f"sharded {name} selects unchecked "
+                                 f"{sorted(unchecked)}")
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, SHARD_MESHES[0], backend=SHARD_BACKEND,
+                      device=DEVICE, args=(cfg, BATCH4_LENGTHS, 16),
+                      timeout=240)
+    wall = time.perf_counter() - t0
+    single = _prefill_logits(torch, served, cfg.with_(matmul_policy=lut))
+    single = single.cpu().numpy()
+    engine = None     # the single-device margin rule's, where streams part
+    reqs = make_requests(BATCH4_LENGTHS, 16, cfg.vocab_size, SEED + 4)
+    paths = {}
+    for spec in SHARD_MESHES:
+        recs = [r["meshes"][spec] for r in ranks]
+        expect = {name for _, name, _, _ in selected_cases(
+            SHARD_1X2 if spec == "1x2" else ARCH, select[spec], "bfloat16")}
+        for rec in recs:
+            check_launches(rec["launches"], expect)
+            if rec["streams"] != recs[0]["streams"] or not rec["done"]:
+                raise AssertionError(f"sharded {spec}: the ranks' streams "
+                                     f"differ or a request did not finish")
+        divergences = []
+        for i, (a, b) in enumerate(zip(recs[0]["streams"], batch4_streams)):
+            if a == b:
+                continue
+            t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            engine = engine or DecodeEngine(
+                served, cfg, batch_size=4, max_len=256,
+                prefill_chunk=PREFILL_CHUNK, device=DEVICE)
+            margin = top2_margin(torch, engine, cfg, reqs[i].prompt, b, t)
+            divergences.append({"request": i, "position": t,
+                                "margin": margin})
+            if not margin < LOGIT_ATOL:
+                raise AssertionError(
+                    f"sharded {spec}: request {i} parts from batch4 at {t}, "
+                    f"where the top-2 margin {margin} is not below "
+                    f"{LOGIT_ATOL}")
+        diff = float(np.abs(recs[0]["logits"].astype(np.float64)
+                            - single.astype(np.float64)).max())
+        if not diff <= SHARD_LOGIT_ATOL:
+            raise AssertionError(f"sharded {spec}: prefill logits under "
+                                 f"{lut} {diff} from single-device, over "
+                                 f"{SHARD_LOGIT_ATOL}")
+        launches = {k: sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
+        paths[f"sharded_{spec}"] = {
+            "model": ARCH, "mesh": spec, "backend": SHARD_BACKEND,
+            "policy": "auto", "act": "bfloat16", "batch": 4,
+            "requests": len(reqs), "new_tokens": recs[0]["tokens"],
+            "decode_steps": recs[0]["decode_steps"],
+            "prefill_chunks": recs[0]["prefill_chunks"],
+            "streams_equal_batch4": not divergences,
+            "divergences": divergences,
+            "logits_vs_single_max_abs": diff,
+            "logits_bitwise": diff == 0.0,
+            "launches": launches,
+            "per_rank": [{"coords": r["coords"], "launches": {
+                k: v for k, v in r["launches"].items() if v},
+                "gather_calls": r["gathers"]["calls"],
+                "gather_bytes": r["gathers"]["bytes"],
+                "gather_ms": r["gathers"]["ms"], "seconds": r["seconds"],
+                "tokens_per_s": r["tokens_per_s"],
+                "universe": r["universe"], "cache_k": r["cache_k"]}
+                for r in recs],
+            "timing": SHARD_LABEL,
+            "selected": {f"M{m}:K{k}:N{n}": name
+                         for (m, k, n), name in select[spec].items()}}
+    del engine
+    for rank, r in enumerate(ranks):
+        emit("sharded_rank", rank=rank, build_s=r["build_s"],
+             peak_gb=r.get("peak_gb"), gpu=card)
+    paths["sharded_1x2"]["phase_wall_s"] = wall
+    return paths
+
+
 def autotune_phase(torch, served, cfg, measurements: int = 2) -> dict:
     """``DecodeEngine.autotune_shapes`` at batch 4 for ``cfg``'s activation
     dtype, dense and grouped shapes; one line per shape with every eligible
@@ -3058,9 +3368,12 @@ def main() -> int:
     short = [3, 40, 20, 9]
     cfg8 = cfg.with_(act_dtype="int8")
 
+    streams = {}
+
     def run_path(name, c, model=ARCH, **kw):
         paths[name] = serve_path(torch, served, c, model, checked=checked,
-                                 roofline=name in ROOFLINE_PATHS, **kw)
+                                 roofline=name in ROOFLINE_PATHS,
+                                 streams=streams.setdefault(name, []), **kw)
         emit(f"serve_{name}", gpu=card, **paths[name])
         torch.cuda.empty_cache()
 
@@ -3072,6 +3385,14 @@ def main() -> int:
     run_path("int8", cfg8, batch=4, lengths=short, new_tokens=4)
     for c in (cfg, cfg8):
         emit("cross_check", **cross_check(torch, served, c))
+
+    # 1a. bitnet sharded: two ranks of this card at 1x2 and 2x1
+    for name, rec in sharded_phase(torch, served, cfg, rows, checked, flush,
+                                   card, streams["batch4"]).items():
+        paths[name] = rec
+        emit(f"serve_{name}", gpu=card, **rec)
+    emit("layer", kernel="lut_gather", **layer_summary(
+        rows, "lut_gather", SHARD_1X2, 4, "bfloat16"))
 
     # 1b. bitnet under arriving traffic, on the prior (before autotune)
     for name, rec in traffic_phase(

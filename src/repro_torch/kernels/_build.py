@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: the sources of the model's kernels (``smem_probe.cu`` is a probe only)
+MODEL_SOURCES = ["lut_matmul", "tl2_matmul", "packed_matmul",
+                 "signflip_matmul", "grouped_matmul"]
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

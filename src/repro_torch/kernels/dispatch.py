@@ -679,7 +679,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def select_kernel(m: int, k: int, n: int, act_dtype: str, *,
                   policy: str | None = None, device: str = "cuda",
                   cache: AutotuneCache | None = None,
-                  mu: int = 3, e: int | None = None) -> KernelSpec:
+                  mu: int = 3, e: int | None = None,
+                  role: str | None = None) -> KernelSpec:
     """Resolve a policy to a registered kernel for the given problem.
 
     ``"fixed:<name>"`` pins a kernel (``KeyError`` listing the registered
@@ -692,7 +693,19 @@ def select_kernel(m: int, k: int, n: int, act_dtype: str, *,
     policy governs a whole model; a dense kernel without one (the LUT and
     sign-flip paths) raises on a grouped problem.  Without an explicit
     ``cache`` the result is memoized per problem until the process cache
-    changes."""
+    changes.
+
+    ``role`` (a projection's leaf name) marks the problem as global: inside
+    a :func:`shard_scope` it is mapped to the rank's local problem first
+    (:class:`ShardInfo`), and that is what selects and keys the cache.  The
+    serving forward passes no role: its weights are already a rank's
+    slice, so every matmul it dispatches is the local problem."""
+    info = _SHARD_INFO.get()
+    if role is not None and info is not None:
+        if e is None:
+            m, k, n = info.local_dense(role, m, k, n)
+        else:
+            e, m, k, n = info.local_grouped(role, e, m, k, n)
     policy = policy or "auto"
     if cache is not None:
         return _select(m, k, n, act_dtype, policy, device, cache, mu, e)
@@ -742,6 +755,101 @@ def _select(m: int, k: int, n: int, act_dtype: str, policy: str, device: str,
                key=lambda s: (static_prior(s, m, k, n, act_dtype, device, mu,
                                            e),
                               s.name))
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded dispatch: a global problem's local shard
+# ---------------------------------------------------------------------------
+
+
+def _div(dim: int, parts: int) -> int:
+    """Per-shard extent of ``dim`` split ``parts`` ways, where the split is
+    even (a dim the axis does not divide stays whole, as
+    ``sharding._validate`` keeps it)."""
+    return dim // parts if parts > 1 and dim % parts == 0 else dim
+
+
+@dataclass(frozen=True)
+class ShardInfo:
+    """A mesh's geometry for mapping a global matmul problem to the one a
+    rank runs, by the rules of ``repro_torch.parallel.sharding``:
+
+      * ``model``: TP degree; out-projection roles (``wq``/``wi``/...)
+        shard N, and so do the in-projection roles (``wo``/``down``/...),
+        whose packed rows are column-parallel;
+      * ``data``: EP degree; grouped (MoE) problems shard the expert dim;
+      * ``batch``: the divisor of a dense M (the engine sets it per entry
+        point: decode splits its rows over data, admission prefills one
+        request, whose M is its chunk);
+      * ``n_heads``/``n_kv_heads``: the whole-head gate of ``wq`` and
+        ``wk``/``wv`` (0: no gate).
+
+    A role of None leaves K and N whole (a replicated weight).  In the
+    port a rank's weights are its slice, so the forward dispatches local
+    problems as they are; ShardInfo maps the engine's shape universe and
+    autotune keys, and a ``select_kernel(role=...)`` inside
+    :func:`shard_scope`."""
+
+    model: int = 1
+    data: int = 1
+    batch: int = 1
+    n_heads: int = 0
+    n_kv_heads: int = 0
+
+    def local_dense(self, role: str | None, m: int, k: int, n: int):
+        from repro_torch.parallel.sharding import (_NO_TP_ROLES, _SPLIT_ROLES,
+                                                   TP_IN_ROLES, TP_OUT_ROLES)
+
+        m = _div(m, self.batch)
+        if role in TP_OUT_ROLES:
+            if role in _NO_TP_ROLES:   # replicated beside a batch axis
+                if self.data == 1:
+                    n = _div(n, self.model)
+                return m, k, n
+            seg = _SPLIT_ROLES.get(role)
+            if seg is not None:        # whole segments only
+                if seg % self.model == 0:
+                    n = _div(n, self.model)
+                return m, k, n
+            h = {"wq": self.n_heads, "wk": self.n_kv_heads,
+                 "wv": self.n_kv_heads}.get(role, 0)
+            if not h or h % self.model == 0:
+                n = _div(n, self.model)
+        elif role in TP_IN_ROLES:
+            # column-parallel packed rows: K whole, N split
+            n = _div(n, self.model)
+        return m, k, n
+
+    def local_grouped(self, role: str | None, e: int, c: int, k: int, n: int):
+        """Expert stacks: E on data; inside each expert ``wi``/``wg`` shard
+        N and ``wo``/``down`` K on model (the packed ``moe`` rules); the
+        capacity C stays whole."""
+        e = _div(e, self.data)
+        if role in ("wi", "wg"):
+            n = _div(n, self.model)
+        elif role in ("wo", "down"):
+            k = _div(k, self.model)
+        return e, c, k, n
+
+
+#: the active :class:`ShardInfo` (:func:`shard_scope`)
+_SHARD_INFO: ContextVar[ShardInfo | None] = ContextVar("shard_info",
+                                                       default=None)
+
+
+@contextmanager
+def shard_scope(info: ShardInfo | None):
+    """Activate ``info`` for the dispatch decisions made inside the block
+    (None: no mesh)."""
+    token = _SHARD_INFO.set(info)
+    try:
+        yield
+    finally:
+        _SHARD_INFO.reset(token)
+
+
+def current_shard_info() -> ShardInfo | None:
+    return _SHARD_INFO.get()
 
 
 #: set inside :func:`per_position_launches`

@@ -1,8 +1,8 @@
-"""Render the one-card dry run's tables from its JSON records.
+"""Render the dry run's tables from its JSON records.
 
 Usage: python -m repro_torch.launch.report [--dir experiments/dryrun_torch]
-Prints the summary, the roofline table (H100 peaks, one card) and the
-memory table.
+Prints the summary, the roofline table (H100 peaks, one card; the traced
+cells) and the memory table (per device, one row per cell and mesh).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def _gb(x) -> str:
 
 
 def roofline_table(recs: list[dict]) -> str:
-    rows = sorted((r for r in recs if r.get("ok")),
+    rows = sorted((r for r in recs if r.get("ok") and "roofline" in r),
                   key=lambda r: (r["arch"], r["shape"]))
     out = ["| arch | shape | compute ms | memory ms | collective ms | "
            "bottleneck | MODEL_FLOPS/counted | step ms |",
@@ -49,13 +49,13 @@ def roofline_table(recs: list[dict]) -> str:
 
 def dryrun_table(recs: list[dict]) -> str:
     rows = sorted((r for r in recs if r.get("ok")),
-                  key=lambda r: (r["arch"], r["shape"]))
-    out = ["| arch | shape | params GB | packed GB | state GB | cache GB | "
-           "fits one card | ops traced | trace s |",
-           "|---|---|---:|---:|---:|---:|---|---:|---:|"]
+                  key=lambda r: (r["arch"], r["shape"], r.get("mesh", "1")))
+    out = ["| arch | shape | mesh | params GB | packed GB | state GB | "
+           "cache GB | fits one card | ops traced | trace s |",
+           "|---|---|---|---:|---:|---:|---:|---|---:|---:|"]
     for r in rows:
         out.append(
-            f"| {r['arch']} | {r['shape']} | "
+            f"| {r['arch']} | {r['shape']} | {r.get('mesh', '1')} | "
             f"{_gb(r.get('param_bytes_per_device'))} | "
             f"{_gb(r.get('packed_bytes_per_device'))} | "
             f"{_gb(r.get('state_bytes_per_device'))} | "
@@ -70,13 +70,15 @@ def summary(recs: list[dict]) -> str:
     ok = [r for r in recs if r.get("ok")]
     bn: dict[str, int] = {}
     for r in ok:
+        if "roofline" not in r:
+            continue
         key = r["roofline"]["bottleneck"]
         bn[key] = bn.get(key, 0) + 1
     fits = sum(bool(r.get("fits")) for r in ok)
     failed = [f"{r['arch']} × {r['shape']}: {r.get('error', '')[:120]}"
               for r in recs if not r.get("ok")]
-    return (f"{len(ok)}/{len(recs)} cells traced on one card; {fits} fit "
-            f"its memory; bottlenecks: {bn}"
+    return (f"{sum(bn.values())}/{len(recs)} cells traced on one card; "
+            f"{fits} fit its memory; bottlenecks: {bn}"
             + "".join(f"\n  failed: {f}" for f in failed))
 
 

@@ -11,8 +11,9 @@ The counts come from :mod:`repro_torch.launch.op_cost`, run over the step
 itself (:func:`from_trace`), where the reference reads XLA's compiled
 artifact.  The peaks are one H100 SXM's (NVIDIA's data sheet, at its 700 W
 limit), not the TPU's.  The interconnect keeps the reference's name,
-``ICI_BW``: NVLink's rate a direction.  The port runs on one card until
-sharding is ported, so the collective term is 0.
+``ICI_BW``: NVLink's rate a direction.  A trace runs one card's program,
+so the collective term is 0 (the sharded ranks' gathers are counted by
+``parallel.collectives``, not traced here).
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ Usage:
       [--policy auto] [--autotune] [--prefix-cache] [--prefix-cache-mb 64] \
       [--scenario chat|rag|agentic|code] [--scenario-seed 0] \
       [--draft <arch>] [--spec-k 4] [--dynamic-spec-k] \
-      [--discipline continuous|generational] [--device cuda|cpu] [--seed 0]
+      [--discipline continuous|generational] [--device cuda|cpu] [--seed 0] \
+      [--mesh DxM] [--dist-backend nccl|gloo]
 
 ``--arch`` takes bitnet-b1.58-2b, the dense qwen3-0.6b, gemma-7b,
 qwen2.5-14b and yi-34b, phi3.5-moe-42b-a6.6b (16 experts, top-2, an MoE
@@ -62,11 +63,23 @@ must not exceed ``--batch``; a ``--scenario`` replay is continuous).
 The fixed requests' prompts are 2 tokens long, or the config's
 ``decode.min_prompt_len`` where that is longer (zamba2's ``ssm_conv - 1``,
 a VLM's ``vision_tokens``).
+
+``--mesh DxM`` (or ``PxDxM``) serves sharded (``DecodeEngine(mesh=...)``):
+the launcher builds the CUDA kernels, then spawns D·M rank processes
+(``launch.mesh.run_ranks``, rank ``r`` on ``cuda:<r % device_count>``)
+over ``--dist-backend`` (``nccl`` by default; ``gloo`` to put several
+ranks on one card, or on the CPU with ``--device cpu``).  Each rank builds
+the weights from the seed and the engine keeps its slice; rank 0 prints.
+The dense attention archs only, and not with ``--scenario`` (each rank's
+wall clock would admit at its own times), ``--draft`` or
+``--prefix-cache``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
@@ -83,9 +96,7 @@ from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.workload import get_scenario
 
 
-def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
-    """Serve the fixed request list (returns the requests) or, with
-    ``--scenario``, replay the scenario (returns the :class:`LoadResult`)."""
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -141,9 +152,47 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None,
+                    help="serve sharded on DxM (data x model) or PxDxM "
+                    "ranks, one process each")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default="nccl",
+                    help="the ranks' torch.distributed backend (gloo puts "
+                    "several ranks on one card, through the host)")
+    return ap
 
-    device = resolve_device(args.device)
+
+def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
+    """Serve the fixed request list (returns the requests) or, with
+    ``--scenario``, replay the scenario (returns the :class:`LoadResult`).
+    With ``--mesh``: rank 0's requests."""
+    args = _parser().parse_args(argv)
+    if args.mesh is None:
+        return _serve(args, resolve_device(args.device))
+    from repro_torch.launch.mesh import run_ranks
+
+    if args.scenario or args.draft or args.prefix_cache:
+        raise SystemExit("[serve] --mesh serves the fixed request list, "
+                         "without --scenario, --draft or --prefix-cache")
+    if resolve_device(args.device).type == "cuda":
+        from repro_torch.kernels import _build
+
+        # once, before the ranks start: each rank loads the libraries
+        _build.build_all(_build.MODEL_SOURCES)
+    return run_ranks(serve_rank, args.mesh, backend=args.dist_backend,
+                     device=args.device, args=(args,))[0]
+
+
+def serve_rank(mesh, device: torch.device, args: argparse.Namespace):
+    """One rank of ``--mesh``: the launcher's serving on ``mesh``, printed
+    by rank 0 only."""
+    if mesh.index(mesh.axis_names) == 0:
+        return _serve(args, device, mesh)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return _serve(args, device, mesh)
+
+
+def _serve(args: argparse.Namespace, device: torch.device, mesh=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.act_dtype != "none":
         cfg = cfg.with_(act_dtype=args.act_dtype)
@@ -175,7 +224,12 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
                           prefill_chunk=args.prefill_chunk, device=device,
                           prefix_cache=args.prefix_cache,
                           prefix_cache_mb=args.prefix_cache_mb,
-                          draft=draft, spec_k=args.spec_k)
+                          draft=draft, spec_k=args.spec_k, mesh=mesh)
+    del served   # a mesh's engine keeps its slice
+    if mesh is not None:
+        print(f"[serve] mesh {mesh.name} ({mesh.backend}), {mesh.size} ranks; "
+              f"rank 0's slice: packed {packed_bits_per_weight(engine.params):.3f}"
+              f" b/w")
     budget = args.admission_budget if args.admission_budget > 0 else None
     if args.autotune:
         for shape, us in engine.autotune_shapes().items():
@@ -226,6 +280,11 @@ def main(argv: list[str] | None = None) -> list[Request] | LoadResult:
     print(f"[serve] {args.discipline}: {n} tokens / {steps} decode steps in "
           f"{dt:.2f}s ({n / dt:.1f} tok/s); kernel launches: "
           f"{_launch_report()}")
+    if mesh is not None:
+        st = mesh.stats
+        print(f"[serve] rank 0 collectives ({mesh.backend}): {st.calls} "
+              f"calls, {st.bytes / 1e6:.3f} MB joined, "
+              f"{st.seconds * 1e3:.1f} ms")
     if args.discipline == "continuous":
         _print_spec_line(engine, sched.stats, n)
     _print_prefix_line(engine)

@@ -53,6 +53,7 @@ from repro_torch.models.model import (Params, attn_layers, block_ffn,
                                       sinusoidal_positions, stack_layers,
                                       whisper_cross, whisper_dec_block,
                                       whisper_encode, with_positions)
+from repro_torch.parallel.collectives import join_last
 
 logger = logging.getLogger(__name__)
 
@@ -323,7 +324,7 @@ def cache_len(cfg: ModelConfig, s_max: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", mesh=None) -> dict:
     """A fresh cache of ``B`` rows, every leaf ``[layers, B, ...]``: the KV
     ring and its slot positions (-1 = empty) for each attention layer
     (zamba2: one per shared-block invocation; whisper: each decoder
@@ -331,9 +332,28 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
     ``cross_k``/``cross_v`` ``[L, B, enc_seq, Hkv, hd]``, written once by
     prefill), zamba2's f32 SSM states and conv windows, xlstm's mLSTM
     ``(C, n, m)`` and sLSTM ``(c, n, h, m)`` states at the reference's
-    initial values."""
+    initial values.  With ``mesh`` (the attention family) a rank's slice:
+    its rows of the batch and its kv heads, per
+    ``sharding.cache_specs(kv_heads=cfg.n_kv_heads)``."""
     CL = cache_len(cfg, s_max)
     f32 = torch.float32
+    if mesh is not None:
+        from repro_torch.parallel.sharding import cache_specs, local_shape
+
+        if cfg.block_pattern != "attn" or cfg.is_encdec:
+            raise NotImplementedError(
+                f"a sharded cache covers the attention family, not "
+                f"{cfg.name}")
+        whole = init_cache(cfg, B, s_max, dtype, "meta")
+        specs = cache_specs(whole, mesh, kv_heads=cfg.n_kv_heads)
+        # the slot positions follow their rows: the reference keeps them
+        # whole and updates every row on every device, a rank here decodes
+        # its own rows only
+        specs["pos"] = specs["k"][:3]
+        fill = {"k": 0, "v": 0, "pos": -1}
+        return {name: torch.full(local_shape(leaf.shape, specs[name], mesh),
+                                 fill[name], dtype=leaf.dtype, device=device)
+                for name, leaf in whole.items()}
 
     def kv(n):
         shape = (n, B, CL, cfg.n_kv_heads, cfg.head_dim)
@@ -433,9 +453,10 @@ def _prefill_positions(S: int, CL: int, device=None) -> torch.Tensor:
 
 def _final_logits(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """[B, D] final hidden → masked f32 logits [B, V] (f64 for the f64
-    yardstick)."""
-    return mask_padded_vocab((h @ lm_head_w(p, cfg)).to(acc_dtype(h)),
-                             cfg.vocab_size)
+    yardstick); a rank's vocab columns under a mesh are gathered first."""
+    logits = join_last((h @ lm_head_w(p, cfg)).to(acc_dtype(h)),
+                       cfg.padded_vocab)
+    return mask_padded_vocab(logits, cfg.vocab_size)
 
 
 def min_prompt_len(cfg: ModelConfig) -> int:

@@ -18,6 +18,14 @@ entry carries the bound
 
 The arithmetic follows the reference op for op, including where it rounds
 to bf16, so the two agree to bf16 tolerance.
+
+Under a mesh (``parallel.collectives.mesh_scope``) a rank's projections
+hold its slice of the output columns (``parallel/sharding.py``): the
+attention takes the rank's whole q heads and the kv heads their GQA groups
+read (:func:`_local_groups`), and the in-projections (``wo``) take the
+gathered input and have their output gathered (:func:`_joined_out`), so
+the residual stream, the norms and the W1.58A8 activation scales are
+whole on every rank, as on one device.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from repro_torch.kernels.dispatch import (GroupedTernaryWeight, TernaryWeight,
                                           grouped_ternary_matmul,
                                           ternary_matmul)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.collectives import current_mesh, join_last
 
 Params = dict[str, Any]
 
@@ -195,10 +204,67 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, q_pos, k_pos, kind: str = "causal",
     return out.reshape(B, Sq, H * hd).to(v.dtype)
 
 
+def _local_groups(q, k, v, cfg: ModelConfig):
+    """The GQA grouping of a rank's heads under a mesh: q ``[B, S, Hl,
+    hd]`` holds the rank's whole q heads ``[h0, h0 + Hl)`` (``h0`` from
+    its model coordinate; all of them where ``wq`` stays whole), k/v ``[B,
+    S', Hkvl, hd]`` its kv heads (all where the model axis does not divide
+    them).  Head ``h`` reads kv head ``h // rep``: returns the kv heads of
+    the groups ``[h0 // rep, ceil((h0 + Hl) / rep))`` as a slice of k/v's
+    head dim, the q heads zero-padded to those whole groups, and the
+    rank's first head among them.  On one device (or whole heads) q and
+    every kv head as they are, first 0."""
+    H, Hkv = q.shape[2], k.shape[2]
+    if H == cfg.n_heads and Hkv == cfg.n_kv_heads:
+        return q, slice(None), 0
+    r = current_mesh().coord("model")
+    rep = cfg.n_heads // cfg.n_kv_heads
+    h0 = r * H if H < cfg.n_heads else 0
+    kv0 = r * Hkv if Hkv < cfg.n_kv_heads else 0
+    g0, g1 = h0 // rep, -(-(h0 + H) // rep)
+    front, back = h0 - g0 * rep, g1 * rep - (h0 + H)
+    if front or back:
+        q = torch.nn.functional.pad(q, (0, 0, front, back))
+    return q, slice(g0 - kv0, g1 - kv0), front
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, extra_kv=None, **kw):
+    """:func:`_sdpa` over the rank's q heads (:func:`_local_groups`):
+    ``[B, Sq, Hl * hd]``, the heads of a padded group dropped."""
+    B, Sq, H, hd = q.shape
+    q, kv, first = _local_groups(q, k, v, cfg)
+    if extra_kv is not None:
+        extra_kv = (extra_kv[0][:, :, kv], extra_kv[1][:, :, kv], extra_kv[2])
+    o = _sdpa(q, k[:, :, kv], v[:, :, kv], cfg, extra_kv=extra_kv, **kw)
+    if q.shape[2] == H:
+        return o
+    return o.reshape(B, Sq, -1, hd)[:, :, first:first + H].reshape(
+        B, Sq, H * hd)
+
+
+def _in_width(p: Params, x: torch.Tensor) -> int:
+    """The in-features of the projection ``p``: a bound packed leaf's
+    logical K, a float leaf's rows, else ``x``'s width."""
+    if "tw" in p:
+        return p["tw"].in_features
+    if "w" in p:
+        return p["w"].shape[-2]
+    return x.shape[-1]
+
+
+def _joined_out(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The d_model-output projection ``p`` (``wo``) of ``h``.  Under a mesh
+    its packed rows are column-parallel: it takes ``h`` gathered whole
+    (a rank's heads or FFN columns) and its output columns are gathered."""
+    y = linear(p, join_last(h, _in_width(p, h)), cfg)
+    return join_last(y, cfg.d_model)
+
+
 def _q(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
        use_rope: bool = True):
     B, Sq, _ = x.shape
-    q = linear(p["wq"], x, cfg).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    # a rank's q heads under a mesh (whole heads: the sharding's head gate)
+    q = linear(p["wq"], x, cfg).reshape(B, Sq, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
     return rope(q, positions, cfg.rope_theta) if use_rope else q
@@ -208,8 +274,8 @@ def cross_kv(p: Params, src: torch.Tensor, cfg: ModelConfig):
     """Keys and values of ``src`` [B, S, D] (whisper's encoder output)
     under the projections ``p``: ``(k, v)`` [B, S, Hkv, hd], unroped."""
     B, S, _ = src.shape
-    k = linear(p["wk"], src, cfg).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(p["wv"], src, cfg).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = linear(p["wk"], src, cfg).reshape(B, S, -1, cfg.head_dim)
+    v = linear(p["wv"], src, cfg).reshape(B, S, -1, cfg.head_dim)
     return k, v
 
 
@@ -281,11 +347,12 @@ def append_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   k_pos=per_query(k_positions), kind="causal_strict",
                   extra_kv=(rows(k), rows(v), rows(positions)),
                   extra_kind="self")
-        return linear(p["wo"], o.reshape(B, Sq, -1), cfg), (cache_k, cache_v)
-    o = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), cfg,
+        return _joined_out(p["wo"], o.reshape(B, Sq, -1), cfg), \
+            (cache_k, cache_v)
+    o = _attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype), cfg,
               q_pos=positions, k_pos=k_positions, window=window,
               extra_kv=(k, v, positions))
-    return linear(p["wo"], o, cfg), (k, v)
+    return _joined_out(p["wo"], o, cfg), (k, v)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -302,10 +369,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q, k, v = _qkv(p, x, cfg, positions, use_rope)
     else:
         q, (k, v) = _q(p, x, cfg, positions, use_rope), kv
-    out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), cfg, q_pos=positions,
+    out = _attend(q, k.to(q.dtype), v.to(q.dtype), cfg, q_pos=positions,
                 k_pos=positions if k_positions is None else k_positions,
                 kind=kind, window=window)
-    out = linear(p["wo"], out, cfg)
+    out = _joined_out(p["wo"], out, cfg)
     return (out, (k, v)) if return_kv else out
 
 
@@ -315,7 +382,7 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = _act(cfg.act_fn)(linear(p["wg"], x, cfg)) * linear(p["wi"], x, cfg)
     else:
         h = _act(cfg.act_fn)(linear(p["wi"], x, cfg))
-    return linear(p["wo"], h, cfg)
+    return _joined_out(p["wo"], h, cfg)
 
 
 def moe_capacity(cfg: ModelConfig, tokens: int) -> int:

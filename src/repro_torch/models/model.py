@@ -39,6 +39,8 @@ from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention, chunked_ce_loss, cross_kv,
                                        ffn, init_moe, moe_ffn, rms_norm)
+from repro_torch.parallel.collectives import (current_mesh, join_last,
+                                              sum_disjoint)
 
 Params = dict[str, Any]
 
@@ -241,8 +243,22 @@ def embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings ``[B, S, D]`` (gemma's scaled by sqrt(d_model));
     ``vision_embeds`` ``[B, vision_tokens, D]`` (the ``vit_stub``
-    frontend) overwrite positions ``[0, vision_tokens)``."""
-    h = p["embed"]["w"][tokens]  # [B, S, D]
+    frontend) overwrite positions ``[0, vision_tokens)``.  Under a mesh a
+    rank's table is its slice: of d_model (an untied table), whose lookups
+    the model ranks' columns join; or of the vocab (a tied one), where
+    only the rank holding a token's row looks it up, the others give
+    zeros, and the disjoint sum joins them exactly."""
+    table = p["embed"]["w"]
+    if current_mesh() is not None and table.shape[0] < cfg.padded_vocab:
+        rows = table.shape[0]
+        local = tokens - current_mesh().coord("model") * rows
+        mine = (local >= 0) & (local < rows)
+        h = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        h = sum_disjoint(h)
+    else:
+        h = join_last(table[tokens], cfg.d_model)  # [B, S, D]
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=_const_dtype(h)).to(h.dtype)

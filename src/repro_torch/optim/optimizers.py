@@ -33,6 +33,9 @@ class Optimizer:
     #: in place (see the module docstring)
     update: Callable[..., tuple[Params, Any]]
     name: str = ""
+    #: ``state_specs(param_specs, params) -> specs``: the state's layout on
+    #: a mesh from the parameters' (``parallel.sharding.param_specs``)
+    state_specs: Callable[[Any, Params], Any] | None = None
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -143,7 +146,12 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         _commit(state["count"], c, ok)
         return params, state
 
-    return Optimizer(init=init, update=update, name="adamw")
+    def state_specs(param_specs, params):
+        """The moments lie as their parameters; the count is whole."""
+        return {"m": param_specs, "v": param_specs, "count": ()}
+
+    return Optimizer(init=init, update=update, name="adamw",
+                     state_specs=state_specs)
 
 
 def adafactor(lr_fn, eps=1e-30, clip_threshold=1.0, decay=0.8,
@@ -201,7 +209,22 @@ def adafactor(lr_fn, eps=1e-30, clip_threshold=1.0, decay=0.8,
         _commit(state["count"], c, ok)
         return params, state
 
-    return Optimizer(init=init, update=update, name="adafactor")
+    def state_specs(param_specs, params):
+        """A matrix's row and column moments keep its spec without the
+        last dim and without the second last; a vector's its own."""
+        def st(spec, p):
+            if isinstance(p, dict):
+                return {k: st(spec[k], p[k]) for k in p}
+            dims = list(spec) + [None] * (p.ndim - len(spec))
+            if p.ndim >= 2:
+                return {"vr": tuple(dims[:-1]),
+                        "vc": tuple(dims[:-2] + [dims[-1]])}
+            return {"v": tuple(dims)}
+
+        return {"s": st(param_specs, params), "count": ()}
+
+    return Optimizer(init=init, update=update, name="adafactor",
+                     state_specs=state_specs)
 
 
 def make_optimizer(name: str, base_lr: float = 3e-4, warmup: int = 100,

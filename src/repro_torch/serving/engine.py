@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import itertools
 import logging
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -50,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.dispatch import autotune, get_autotune_cache
+from repro_torch.kernels.dispatch import (ShardInfo, autotune,
+                                          get_autotune_cache, shard_scope)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        check_prompt_len, decode_step,
@@ -64,6 +66,8 @@ from repro_torch.models.decode import (bind_serving_weights, cache_len,
                                        verify_step)
 from repro_torch.models.decode import prefill_chunk as model_prefill_chunk
 from repro_torch.models.model import check_supported
+from repro_torch.parallel.collectives import gather_batch, mesh_scope
+from repro_torch.parallel.sharding import param_specs, shard_tree
 from repro_torch.serving.prefix_cache import PrefixBlockStore
 
 logger = logging.getLogger(__name__)
@@ -181,12 +185,22 @@ class DecodeEngine:
         chunked path; admission prefills the draft's own ring beside the
         target's.  ``matmul_policy`` governs the draft too.
 
-        ``mesh`` (sharded serving) is not ported yet and raises when set,
-        with or without a draft."""
+        ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh` of this rank, over
+        an initialized world) serves sharded: ``params`` is the whole tree,
+        of which the engine keeps this rank's slice by the rules of
+        :mod:`repro_torch.parallel.sharding` (packed rows split, scales
+        global), and each rank holds its rows of the batch in its cache
+        (``init_cache(mesh=...)``).  Every rank runs the same steps: a
+        decode step's logits are gathered over the batch axes and sampled
+        whole, with the same seeded generator on every rank, so every
+        rank's scheduler sees the same tokens and liveness; admission
+        prefills the request on every rank (its one row is not split) and
+        the rank holding the slot splices it.  The dense attention archs
+        with chunked admission only; MoE, the recurrent, encoder-decoder
+        and VLM archs, a draft and a prefix cache raise
+        ``NotImplementedError`` under a mesh."""
         if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=...) is not ported yet: the port serves "
-                "on a single device, without mesh sharding")
+            self._check_mesh(cfg, mesh, draft, prefix_cache)
         self.device = resolve_device(device)
         if matmul_policy is not None:
             cfg = cfg.with_(matmul_policy=matmul_policy)
@@ -214,6 +228,24 @@ class DecodeEngine:
         self.prefill_chunk = max(1, min(prefill_chunk, self._CL))
         self.prefix_store = self._make_prefix_store(prefix_cache,
                                                     prefix_cache_mb)
+        self.mesh = mesh
+        #: this rank's rows of the batch (all of them on one device, or where
+        #: the batch axes do not divide the batch)
+        self._rows = slice(0, batch_size)
+        #: the mesh geometry the matmuls run at: "decode" splits its rows
+        #: over the batch axes (so does run()'s batched prefill), "admit"
+        #: prefills one request, whose M is its chunk's
+        self._shard_infos: dict[str, ShardInfo] = {}
+        if mesh is not None:
+            model, data = mesh.shape["model"], mesh.size_of(mesh.batch_axes)
+            geo = dict(model=model, data=data, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads)
+            self._shard_infos = {"decode": ShardInfo(batch=data, **geo),
+                                 "admit": ShardInfo(batch=1, **geo)}
+            self._rows = mesh.batch_rows(batch_size)
+            params = shard_tree(params, param_specs(
+                params, mesh, heads={"wq": cfg.n_heads,
+                                     "wk": cfg.n_kv_heads}), mesh)
         params = _to_device(params, self.device)
         self.params = bind_serving_weights(params, cfg)
         if self.spec_k:
@@ -221,6 +253,46 @@ class DecodeEngine:
                 _to_device(draft[0], self.device), self.draft_cfg)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.sampler.seed)
+
+    @staticmethod
+    def _check_mesh(cfg: ModelConfig, mesh, draft, prefix_cache) -> None:
+        """Refuse what sharded serving does not cover yet."""
+        later = "not ported yet (a later slice of the port)"
+        if cfg.n_experts:
+            raise NotImplementedError(
+                f"sharded serving of MoE configs ({cfg.name}: expert "
+                f"parallel on 'data') is {later}")
+        if cfg.block_pattern != "attn" or cfg.is_encdec or \
+                cfg.frontend != "none":
+            raise NotImplementedError(
+                f"sharded serving of {cfg.name} (block_pattern="
+                f"{cfg.block_pattern}, frontend={cfg.frontend}) is {later}; "
+                f"the dense attention archs with chunked admission shard")
+        if draft is not None:
+            raise NotImplementedError(
+                f"speculative decoding under a mesh is {later}")
+        if prefix_cache is not None and prefix_cache is not False:
+            raise NotImplementedError(f"a prefix cache under a mesh is {later}")
+        if mesh.coords is None:
+            raise ValueError(f"mesh {mesh.name} has a shape only; serving "
+                             "needs a rank's mesh (launch.mesh.run_ranks)")
+
+    @contextmanager
+    def _entry(self, name: str):
+        """A forward of the kind ``name`` ("decode" or "admit"): under a
+        mesh, its ``ShardInfo`` and the mesh the layers join over."""
+        if self.mesh is None:
+            yield
+            return
+        with shard_scope(self._shard_infos[name]), mesh_scope(self.mesh):
+            yield
+
+    def _whole_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's rows' logits joined over the batch axes (as they are
+        where the rank holds every row)."""
+        if self.mesh is None or self._rows == slice(0, self.B):
+            return logits
+        return gather_batch(logits, self.mesh)
 
     @staticmethod
     def _check_draft(params, cfg: ModelConfig, draft_params,
@@ -297,36 +369,43 @@ class DecodeEngine:
     # kernel autotuning over the engine's shapes
     # ------------------------------------------------------------------
 
-    def _shape_sources(self) -> list[tuple[ModelConfig, int, int]]:
-        """``(cfg, batch_size, seq_len)`` of every forward the serving path
-        runs: the target's decode (``B`` rows) and admission chunk (one
+    def _shape_sources(self) -> list[tuple[ModelConfig, int, int, str]]:
+        """``(cfg, batch_size, seq_len, kind)`` of every forward the serving
+        path runs: the target's decode (``B`` rows) and admission chunk (one
         request at a time, chunk by chunk), and with a draft the target's
         verify (``B · spec_k`` rows), the draft's decode and its admission
-        chunk."""
-        sources = [(self.cfg, self.B, 1), (self.cfg, 1, self.prefill_chunk)]
+        chunk; ``kind`` is "decode" or "admit" (:meth:`_entry`)."""
+        sources = [(self.cfg, self.B, 1, "decode"),
+                   (self.cfg, 1, self.prefill_chunk, "admit")]
         if self.spec_k:
-            sources += [(self.cfg, self.B, self.spec_k),
-                        (self.draft_cfg, self.B, 1),
-                        (self.draft_cfg, 1, self.prefill_chunk)]
+            sources += [(self.cfg, self.B, self.spec_k, "decode"),
+                        (self.draft_cfg, self.B, 1, "decode"),
+                        (self.draft_cfg, 1, self.prefill_chunk, "admit")]
         return sources
 
-    @staticmethod
-    def _problems(cfg: ModelConfig, bs: int, sl: int
+    def _problems(self, cfg: ModelConfig, bs: int, sl: int, kind: str
                   ) -> set[tuple[tuple[int, ...], int | None]]:
         """``(shape, e)`` of every ternary-matmul problem one forward of
         ``cfg`` over ``bs`` rows of ``sl`` tokens dispatches: dense ``(M, K,
-        N)`` with ``e`` None, grouped ``(E, C, K, N)`` with ``e = E``."""
-        return ({((m, k, n), None)
-                 for _, m, k, n in serving_matmul_problems(cfg, bs, sl)}
-                | {((e, c, k, n), e)
-                   for _, e, c, k, n in layer_grouped_matmul_problems(
-                       cfg, bs, sl)})
+        N)`` with ``e`` None, grouped ``(E, C, K, N)`` with ``e = E``;
+        under a mesh each the rank's local problem (``kind``'s
+        :class:`ShardInfo`)."""
+        info = self._shard_infos.get(kind)
+        dense = {(m, k, n) if info is None else info.local_dense(role, m, k, n)
+                 for role, m, k, n in serving_matmul_problems(cfg, bs, sl)}
+        grouped = {(e, c, k, n) if info is None
+                   else info.local_grouped(role, e, c, k, n)
+                   for role, e, c, k, n in layer_grouped_matmul_problems(
+                       cfg, bs, sl)}
+        return ({(shape, None) for shape in dense}
+                | {(shape, shape[0]) for shape in grouped})
 
     def matmul_shape_universe(self) -> list[tuple[int, ...]]:
         """Every ternary-matmul problem this engine's serving path
         dispatches (:meth:`_shape_sources`): dense ``(M, K, N)`` triples
         and, for MoE configs, the grouped ``(E, C, K, N)`` quads of the
-        expert stacks at the matching per-expert capacities."""
+        expert stacks at the matching per-expert capacities; under a mesh
+        the rank's local problems."""
         return sorted({shape for src in self._shape_sources()
                        for shape, _ in self._problems(*src)})
 
@@ -343,9 +422,9 @@ class DecodeEngine:
         :meth:`matmul_shape_universe`."""
         cache = get_autotune_cache()
         results, seen = {}, set()
-        for c, bs, sl in self._shape_sources():
+        for c, bs, sl, kind in self._shape_sources():
             act = "int8" if c.act_dtype == "int8" else c.dtype
-            for shape, e in sorted(self._problems(c, bs, sl),
+            for shape, e in sorted(self._problems(c, bs, sl, kind),
                                    key=lambda p: p[0]):
                 if (shape, act) in seen:
                     continue
@@ -382,11 +461,14 @@ class DecodeEngine:
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         # a VLM's vision prefix overwrites the first positions of the
         # left-padded batch, so its length rule holds for the padded length
-        cache, logits = prefill(self.params, self.cfg,
-                                {"tokens": torch.from_numpy(toks).to(
-                                    self.device),
-                                 **self._stub_inputs(self.B)},
-                                s_max=self.max_len)
+        rows = self._rows
+        with self._entry("decode"):     # the batch's rows, split
+            cache, logits = prefill(
+                self.params, self.cfg,
+                {"tokens": torch.from_numpy(toks[rows]).to(self.device),
+                 **self._stub_inputs(rows.stop - rows.start)},
+                s_max=self.max_len)
+        logits = self._whole_rows(logits)
         cur = plen - 1
         for t in range(max_new):
             tokens = sample_tokens(logits, self.sampler, self._gen)
@@ -403,8 +485,10 @@ class DecodeEngine:
             if all(r.done or len(r.out) >= r.max_new_tokens for r in reqs):
                 break
             cur += 1
-            logits, cache = decode_step(self.params, self.cfg, cache, tokens,
-                                        cur)
+            with self._entry("decode"):
+                logits, cache = decode_step(self.params, self.cfg, cache,
+                                            tokens[rows], cur)
+            logits = self._whole_rows(logits)
         for r in requests:
             if not r.done and len(r.out) >= r.max_new_tokens:
                 # budget exhausted: finished, as serve()'s alive mask has it
@@ -421,7 +505,8 @@ class DecodeEngine:
         round write both rings in lockstep, so one ``index`` serves both."""
         B, V, dev = self.B, self.cfg.padded_vocab, self.device
         state = {
-            "cache": init_cache(self.cfg, B, self.max_len, device=dev),
+            "cache": init_cache(self.cfg, B, self.max_len, device=dev,
+                                mesh=self.mesh),
             "logits": torch.zeros((B, V), dtype=torch.float32, device=dev),
             "live": torch.zeros((B,), dtype=torch.bool, device=dev),
             "index": torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -472,7 +557,8 @@ class DecodeEngine:
             pos[0, :valid] = np.arange(start, start + valid)
             chunks.append((torch.from_numpy(toks).to(dev),
                            torch.from_numpy(pos).to(dev), valid - 1))
-        cache1 = init_cache(self.cfg, 1, self.max_len, device=dev)
+        cache1 = init_cache(self.cfg, 1, self.max_len, device=dev,
+                            mesh=self.mesh)
         hits, hashes = 0, []
         store = self.prefix_store
         if store is not None:
@@ -529,8 +615,9 @@ class DecodeEngine:
         i = pending["i"]
         if i < n:
             toks, pos, take = pending["chunks"][i]
-            pending["cache"], pending["logits1"] = model_prefill_chunk(
-                self.params, self.cfg, pending["cache"], toks, pos, take)
+            with self._entry("admit"):
+                pending["cache"], pending["logits1"] = model_prefill_chunk(
+                    self.params, self.cfg, pending["cache"], toks, pos, take)
             hashes = pending["hashes"]
             if i < len(hashes) and hashes[i] not in self.prefix_store:
                 C = self.prefill_chunk
@@ -589,8 +676,11 @@ class DecodeEngine:
                 logits1: torch.Tensor, dcache1: dict | None = None) -> dict:
         """Splice a prefilled single-row cache (and the draft's, with a
         draft) into batch row ``slot``, every leaf, KV and recurrent state
-        alike, and arm the slot (in place)."""
-        splice_rows(state["cache"], slot, cache1)
+        alike, and arm the slot (in place).  Under a mesh only the rank
+        holding the slot's row splices."""
+        rows = self._rows
+        if rows.start <= slot < rows.stop:
+            splice_rows(state["cache"], slot - rows.start, cache1)
         if self.spec_k:
             splice_rows(state["dcache"], slot, dcache1)
         return self._arm(state, slot, request, logits1)
@@ -621,9 +711,14 @@ class DecodeEngine:
         toks = sample_tokens(state["logits"], self.sampler, self._gen)
         toks = torch.where(live, toks, PAD_TOKEN)
         index = state["index"] + live.to(torch.int32)
-        # dead rows decode at -1: their KV/pos writes drop
-        logits, cache = decode_step(self.params, self.cfg, state["cache"],
-                                    toks, torch.where(live, index, -1))
+        # dead rows decode at -1: their KV/pos writes drop; under a mesh the
+        # rank decodes its rows and the logits are joined whole
+        rows = self._rows
+        with self._entry("decode"):
+            logits, cache = decode_step(self.params, self.cfg, state["cache"],
+                                        toks[rows],
+                                        torch.where(live, index, -1)[rows])
+        logits = self._whole_rows(logits)
         remaining = state["remaining"] - live.to(torch.int32)
         alive = live & (toks != state["stop"]) & (remaining > 0)
         state = dict(state, cache=cache, logits=logits, index=index,

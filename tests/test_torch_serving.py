@@ -247,13 +247,16 @@ def test_engine_without_device_needs_a_card():
         tengine.DecodeEngine({}, tcfg, batch_size=1, max_len=16)
 
 
-@pytest.mark.parametrize("kwarg", [{"mesh": object()},
-                                   {"mesh": object(),
-                                    "draft": ({}, t_smoke(ARCH))}])
+@pytest.mark.parametrize("kwarg", [{"prefix_cache": True},
+                                   {"draft": ({}, t_smoke(ARCH))}])
 def test_engine_rejects_features_not_ported(kwarg):
+    """Sharded serving is ported (``tests/test_torch_sharding.py``); a
+    prefix cache or a draft under a mesh is not yet."""
+    from repro_torch.launch.mesh import make_mesh_for
+
     with pytest.raises(NotImplementedError, match="not ported"):
         tengine.DecodeEngine({}, t_smoke(ARCH), batch_size=1, max_len=16,
-                             device="cpu", **kwarg)
+                             device="cpu", mesh=make_mesh_for(2, 2), **kwarg)
 
 
 def test_generational_run_is_not_ported(jax_served):
@@ -368,7 +371,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "core/generator.py", "core/simulator.py", "core/dse.py",
             "core/calibration.py", "configs/shapes.py", "launch/op_cost.py",
             "launch/roofline.py", "launch/dryrun.py", "launch/report.py",
-            "launch/ablate.py"} <= names
+            "launch/ablate.py", "parallel/sharding.py",
+            "parallel/collectives.py", "launch/mesh.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert offenders == []
@@ -382,7 +386,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.simulator, repro_torch.core.calibration, "
             "repro_torch.configs.shapes, repro_torch.launch.op_cost, "
             "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
-            "repro_torch.launch.report, repro_torch.launch.ablate; "
+            "repro_torch.launch.report, repro_torch.launch.ablate, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.collectives, "
+            "repro_torch.launch.mesh; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
